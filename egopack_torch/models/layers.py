@@ -1,0 +1,219 @@
+"""Core layers (counterpart of ``egopack_tpu/models/layers.py``): torch-init
+Linear with the bf16-input/f32-output policy, per-feature LayerNorm, graph-mode
+LayerNorm, dense SAGE convolution, sinusoidal positional encoding, and the
+dropout every module draws from an explicit generator.
+
+Parameters are created as zeros (LayerNorm scales as ones) on the given
+device; ``reset_parameters(generator)`` draws the torch-default init. No
+module touches the global RNG.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout`` semantics: kept entries are
+    scaled by ``1/keep``). The mask comes from ``generator``, which must
+    live on ``x``'s device."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+class TLinear(nn.Module):
+    """Linear layer with torch-default init, ``weight (out, in)``.
+
+    Mixed-precision policy of the JAX layer: when the input is bfloat16 the
+    product takes bf16 operands (input and rounded weight), sums in float32
+    and returns float32. Products of two bf16 values are exact in float32, so
+    a float32 product of the rounded operands is that policy; ``F.linear``
+    on bf16 would return bf16 and is not."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features,
+                                               device=dev))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, device=dev))
+        else:
+            self.register_parameter("bias", None)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # kaiming_uniform(a=sqrt(5)) == U(+-1/sqrt(fan_in)), bias likewise
+        bound = 1.0 / math.sqrt(self.in_features)
+        self.weight.uniform_(-bound, bound, generator=generator)
+        if self.bias is not None:
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            w = self.weight.to(torch.bfloat16).float()
+            y = torch.matmul(x.float(), w.t())
+            return y + self.bias if self.bias is not None else y
+        return F.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """Per-feature LayerNorm with torch defaults (eps=1e-5 inside the rsqrt,
+    affine), computed in float32 and returned in the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=dev))
+        self.bias = nn.Parameter(torch.zeros(dim, device=dev))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                         self.eps)
+        return y.to(x.dtype)
+
+
+class GraphLayerNorm(LayerNorm):
+    """PyG ``LayerNorm(mode='graph')`` called without a batch vector.
+
+    The reference normalises over the ENTIRE batched node tensor:
+    ``(x - mean) / (std(unbiased=False) + eps)``, eps added to the std, not
+    the variance, then a per-feature affine. Masked so padded nodes do not
+    enter the statistics. It is not ``F.layer_norm``."""
+
+    def forward(self, x: torch.Tensor, node_mask: Optional[torch.Tensor] = None,
+                task_onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With ``task_onehot (T, M)`` the input is the concatenated layout
+        ``x (1, M, H)`` of several tasks' node sets; each task gets its own
+        whole-tensor masked statistics through two small ``(T, M)``
+        products."""
+        dim = x.shape[-1]
+        x32 = x.float()
+        if task_onehot is not None:
+            m = node_mask.float()                                  # (M,)
+            cnt = torch.clamp_min(task_onehot @ m * dim, 1.0)      # (T,)
+            row_sum = (x32[0] * m[:, None]).sum(-1)                # (M,)
+            mean_t = (task_onehot @ row_sum) / cnt                 # (T,)
+            mean = (task_onehot.t() @ mean_t)[None, :, None]       # (1, M, 1)
+            row_var = (((x32 - mean) ** 2)[0] * m[:, None]).sum(-1)
+            var_t = (task_onehot @ row_var) / cnt
+            var = (task_onehot.t() @ var_t)[None, :, None]
+        elif node_mask is None:
+            mean = x32.mean()
+            var = ((x32 - mean) ** 2).mean()
+        else:
+            m = node_mask.float()[..., None]                       # (B, N, 1)
+            count = torch.clamp_min(m.sum() * dim, 1.0)
+            mean = (x32 * m).sum() / count
+            var = (((x32 - mean) ** 2) * m).sum() / count
+        y = (x32 - mean) / (torch.sqrt(var) + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class DenseSAGEConv(nn.Module):
+    """GraphSAGE convolution over a dense in-neighbour mask, mean
+    aggregation (PyG ``SAGEConv`` math):
+
+    - ``project``: messages are ``relu(W_p x_j + b_p)`` instead of ``x_j``
+    - mean over in-neighbours ``j`` with ``adj[t, j]``; a node with no
+      in-neighbours aggregates to 0 (PyG scatter semantics)
+    - output ``W_l agg (+ b_l) + W_r x_t``; the root weight has no bias
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 project: bool = False, bias: bool = True, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        msg_features = out_features if project else in_features
+        if project:
+            self.lin_project = TLinear(in_features, out_features,
+                                       device=device)
+        self.project = project
+        self.lin_l = TLinear(msg_features, out_features, bias=bias,
+                             device=device)
+        self.lin_r = TLinear(in_features, out_features, bias=False,
+                             device=device)
+
+    def _messages(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.lin_project(x)) if self.project else x
+
+    @staticmethod
+    def _aggregate(msg: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        # adj (N, N) broadcasts over the batch; (B, N, N) is per sample
+        a = adj.to(msg.dtype)
+        deg = torch.clamp_min(a.sum(-1, keepdim=True), 1.0)
+        agg = torch.matmul(a, msg) / deg
+        return torch.where(adj.any(-1, keepdim=True), agg, 0.0)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        """x (B, N, H); adj (B, N, N) or (N, N) bool in-neighbour mask."""
+        agg = self._aggregate(self._messages(x), adj)
+        return self.lin_l(agg) + self.lin_r(x)
+
+    def concat(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        """Concatenated layout: ``x (1, M, H)`` stacks every task's node set;
+        ``adj (M, M)`` is the block-diagonal in-neighbour mask over it, so the
+        aggregation is one (M, M) x (M, H) product."""
+        agg = self._aggregate(self._messages(x)[0], adj)[None]
+        return self.lin_l(agg) + self.lin_r(x)
+
+    def multi(self, xs: Sequence[torch.Tensor],
+              adjs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Several graphs at once: the per-node products run once over the
+        concatenation of every graph's nodes; only the aggregation stays per
+        graph. Same numbers as calling ``forward`` per graph."""
+        sizes = [(x.shape[0], x.shape[1]) for x in xs]
+        flat = torch.cat([x.reshape(1, -1, x.shape[-1]) for x in xs], 1)
+        msg_flat = self._messages(flat)
+        aggs, off = [], 0
+        for (b, n), adj in zip(sizes, adjs):
+            msg = msg_flat[0, off:off + b * n].reshape(b, n, -1)
+            off += b * n
+            aggs.append(self._aggregate(msg, adj).reshape(1, b * n, -1))
+        out_flat = self.lin_l(torch.cat(aggs, 1)) + self.lin_r(flat)
+        outs, off = [], 0
+        for b, n in sizes:
+            outs.append(out_flat[0, off:off + b * n].reshape(b, n, -1))
+            off += b * n
+        return outs
+
+
+def positional_encoding(pos: torch.Tensor, out_channels: int,
+                        base_freq: float = 1e-4) -> torch.Tensor:
+    """PyG ``PositionalEncoding``: frequencies ``base_freq ** linspace(0, 1,
+    C/2)`` in float32; output ``[sin(pos*f), cos(pos*f)]`` on the channel
+    axis."""
+    half = out_channels // 2
+    if half > 1:
+        exponents = torch.linspace(0.0, 1.0, half, device=pos.device)
+    else:
+        exponents = torch.zeros(max(half, 1), device=pos.device)
+    freqs = torch.pow(torch.tensor(base_freq, dtype=torch.float32,
+                                   device=pos.device), exponents)
+    angles = pos.float()[..., None] * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

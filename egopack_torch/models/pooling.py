@@ -1,0 +1,50 @@
+"""Temporal pooling: segments to node embedding (counterpart of
+``egopack_tpu/models/pooling.py:TRNPooling``).
+
+Flattens the S segment features of each node and runs a 3-layer MLP
+(Linear -> LN -> ReLU -> Dropout twice, then a final Linear), as the
+reference ``models/temporal_pooling/trn_pooling.py:10-45`` does. The optional
+per-frame encodings of the JAX base class (learnt, positional, temporal) are
+not ported yet; the reference experiments never enable them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..device import DeviceLike
+from .layers import LayerNorm, TLinear, dropout
+
+
+class TRNPooling(nn.Module):
+    """(B, N, S, D) -> (B, N, output_size)."""
+
+    def __init__(self, input_size: int, output_size: int, num_segments: int,
+                 hidden_size: int = 1024, dropout: float = 0.0, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.input_size = input_size
+        self.num_segments = num_segments
+        self.dropout = dropout
+        self.fc0 = TLinear(num_segments * input_size, hidden_size,
+                           device=device)
+        self.ln0 = LayerNorm(hidden_size, device=device)
+        self.fc1 = TLinear(hidden_size, hidden_size, device=device)
+        self.ln1 = LayerNorm(hidden_size, device=device)
+        self.fc_out = TLinear(hidden_size, output_size, device=device)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, n, s, d = x.shape
+        if s != self.num_segments or d != self.input_size:
+            raise ValueError(
+                f"TRNPooling expected (*, {self.num_segments}, "
+                f"{self.input_size}), got (*, {s}, {d})")
+        h = x.reshape(b, n, s * d)
+        for fc, ln in ((self.fc0, self.ln0), (self.fc1, self.ln1)):
+            h = torch.relu(ln(fc(h)))
+            h = dropout(h, self.dropout, train, generator)
+        return self.fc_out(h)

@@ -1,0 +1,1 @@
+"""Losses and the hand-written CUDA kernels with their plain versions."""

@@ -1,0 +1,405 @@
+"""The multi-task system, phase-1 part: backbone + task heads + the train
+step (counterpart of ``egopack_tpu/train/system.py``).
+
+The multi-task loss is a sum over the active tasks, so one backward over it
+reproduces the reference's ``torch.stack(losses).sum().backward()``. The
+tasks' node sets are pooled in one product and, in the ``concat`` layout,
+reasoned over as one block-diagonal graph.
+
+Parameters live in ``MultiTaskSystem.model``, an ``nn.ModuleDict`` whose
+names follow the flax tree (``temporal_graph``, ``task.recognition``, ...;
+see ``interop.py``). The steps update them in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..data.graphs import GraphSpec
+from ..device import DeviceLike, resolve_device
+from ..models.backbone import TemporalGraph
+from ..ops.losses import bce_with_logits, cross_entropy, masked_mean
+from .optim import Adam, AdamState
+
+TASK_ORDER = ("ar", "lta", "oscc", "pnr")
+
+# checkpoint keys mirror the reference state dict
+# (reference main_temporal.py:410-416)
+CKPT_KEYS = {"ar": "task/recognition", "oscc": "task/oscc",
+             "lta": "task/lta", "pnr": "task/pnr"}
+
+Batch = Dict[str, torch.Tensor]
+Logs = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TaskSetup:
+    name: str
+    head: nn.Module
+    spec: GraphSpec
+    weight: float = 1.0
+    # LTA forecast-node fill ("avg" / "zero"): the loader ships only the
+    # real input clips and expand_x builds the forecast nodes on the device
+    append_node: Optional[str] = None
+
+
+def lta_full_adjacency(base_adj: torch.Tensor, y: torch.Tensor,
+                       radius: float) -> torch.Tensor:
+    """Per-sample LTA adjacency: radius chain + forecast edges, with the
+    strict ``y > 0`` forecast count of the reference (see data/graphs.py).
+    base_adj (N, N) bool; y (B, N, 2); returns (B, N, N) bool."""
+    n = y.shape[1]
+    verb = y[..., 0]
+    ni = (verb == -1).sum(1)[:, None, None]
+    nf = (verb > 0).sum(1)[:, None, None]
+    idx = torch.arange(n, device=y.device)
+    t_idx = idx[None, :, None]  # targets
+    s_idx = idx[None, None, :]  # sources
+    src_lo = torch.clamp_min(torch.ceil(ni - radius).long(), 0)
+    extra = ((s_idx >= src_lo) & (s_idx < ni)
+             & (t_idx >= ni) & (t_idx < ni + nf))
+    return base_adj[None] | extra
+
+
+def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm over every tensor (optax.global_norm semantics)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+def _phase1_task_loss(name: str, logits, y: torch.Tensor) -> torch.Tensor:
+    """Per-element phase-1 criteria (reference main_temporal.py:281-298):
+    AR/LTA: plain CE(ignore -1) summed over verb+noun heads; OSCC: plain CE;
+    PNR: BCE-with-logits on the float one-hot."""
+    if name in ("ar", "lta"):
+        return torch.stack([cross_entropy(l, y[..., i])
+                            for i, l in enumerate(logits)]).sum(0)  # (B, N)
+    if name == "oscc":
+        return cross_entropy(logits, y)  # (B,)
+    if name == "pnr":
+        return bce_with_logits(logits, y.float())  # (B, N)
+    raise ValueError(name)
+
+
+@dataclass
+class _ConcatConsts:
+    """Device constants of the concat layout for one (task, batch, nodes)
+    signature: per-row task/sample/node ids, the static block-diagonal
+    adjacency, the same-(task, sample) pair mask, the task one-hot and the
+    concatenated node positions."""
+    tid: torch.Tensor
+    sid: torch.Tensor
+    nid: torch.Tensor
+    static_adj: torch.Tensor
+    same: torch.Tensor
+    onehot: torch.Tensor
+    pos: torch.Tensor
+
+
+class MultiTaskSystem:
+    """Owns the backbone + heads and builds the phase-1 train steps."""
+
+    # Auto layout: concat up to this many concatenated nodes, else slice.
+    # The crossover was measured on a TPU; an H100 measurement is still to
+    # come, so the rule stays as it is.
+    CONCAT_AUTO_MAX_NODES = 1024
+
+    def __init__(self, backbone: TemporalGraph, tasks: Dict[str, TaskSetup],
+                 compute_dtype: torch.dtype = torch.float32,
+                 fused_layout: str = "auto", *, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.backbone = backbone
+        self.tasks = tasks
+        self.compute_dtype = compute_dtype
+        # "slice": pool fused, then reason per task (reason_multi).
+        # "concat": keep the concatenated node set through the whole reason
+        # stack (reason_concat). "auto": by concatenated node count.
+        self.fused_layout = fused_layout
+        self.model = nn.ModuleDict({
+            "temporal_graph": backbone,
+            "task": nn.ModuleDict({CKPT_KEYS[n].split("/")[1]: s.head
+                                   for n, s in sorted(tasks.items())}),
+        })
+        self._task_consts = {
+            n: (torch.as_tensor(s.spec.adjacency, device=self.device),
+                torch.as_tensor(s.spec.pos, device=self.device))
+            for n, s in tasks.items()}
+        self._concat_cache: Dict[tuple, _ConcatConsts] = {}
+
+    def _resolve_layout(self, total_nodes: int) -> str:
+        layout = self.fused_layout
+        if layout == "auto":
+            return ("concat" if total_nodes <= self.CONCAT_AUTO_MAX_NODES
+                    else "slice")
+        if layout not in ("concat", "slice"):
+            raise ValueError(
+                f"fused_layout must be 'auto'|'concat'|'slice', got {layout!r}")
+        return layout
+
+    # ---------------- parameters ----------------
+    def params(self) -> Dict[str, nn.Parameter]:
+        return dict(self.model.named_parameters())
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator
+                    ) -> Dict[str, nn.Parameter]:
+        """Torch-default init of every parameter, drawn from ``generator``
+        (which lives on the system's device)."""
+        for module in self.model.modules():
+            if hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self.params()
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy a full torch state (see ``interop.from_flax``) in."""
+        self.model.load_state_dict(state, strict=True)
+
+    # ---------------- forward pieces ----------------
+    def expand_x(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Build the dense node layout on the device from compact batches:
+        PNR ``(B, N, D)`` repeats each frame S times per node; LTA ships its
+        input clips and the forecast nodes are their mean (or zeros).
+        Full batches pass through."""
+        setup = self.tasks[name]
+        if x.ndim == 3:
+            x = x[:, :, None, :].expand(-1, -1, self.backbone.num_segments, -1)
+        n = setup.spec.num_nodes
+        if x.shape[1] != n:
+            fill_shape = (x.shape[0], n - x.shape[1]) + tuple(x.shape[2:])
+            mode = setup.append_node or "avg"
+            if mode == "avg":
+                fill = x.mean(1, keepdim=True).expand(fill_shape)
+            elif mode == "zero":
+                fill = x.new_zeros(fill_shape)
+            else:
+                raise ValueError(
+                    f"compact batch for {name} with append_node={mode}; "
+                    "the loader must ship the full layout for this mode")
+            x = torch.cat([x, fill], 1)
+        return x
+
+    def _fuse_sig(self, x: torch.Tensor) -> Tuple[int, int]:
+        """(segments, feature_dim) AFTER expansion: what fusion compares."""
+        s = self.backbone.num_segments if x.ndim == 3 else x.shape[2]
+        return (s, x.shape[-1])
+
+    def _can_fuse(self, batches: Dict[str, Batch], names) -> bool:
+        shapes = {self._fuse_sig(batches[n]["x"]) for n in names}
+        return len(shapes) == 1 and len(names) > 1
+
+    def _task_adj(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        spec = self.tasks[name].spec
+        base_adj = self._task_consts[name][0]
+        if spec.lta_extra:
+            return lta_full_adjacency(base_adj, y, spec.radius)
+        return base_adj
+
+    def backbone_features(self, batch: Batch, name: str, train: bool,
+                          generator: Optional[torch.Generator]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shared backbone on one task's batch; returns
+        (features (B, N, H) float32, node_mask (B, N))."""
+        x = self.expand_x(name, batch["x"]).to(self.compute_dtype)
+        node_mask = batch["valid"][:, None].expand(x.shape[:2])
+        feat = self.backbone(x, self._task_adj(name, batch["y"]),
+                             self._task_consts[name][1], node_mask,
+                             train=train, generator=generator)
+        return feat.float(), node_mask
+
+    def _concat_static(self, metas) -> _ConcatConsts:
+        """Constants of the concat layout, built once per signature: LTA's
+        forecast edges depend on the labels and are added per step."""
+        key = tuple(metas)
+        if key in self._concat_cache:
+            return self._concat_cache[key]
+        tid, sid, nid, pos = [], [], [], []
+        for ti, (name, b, n) in enumerate(metas):
+            tid.append(np.full(b * n, ti, np.int64))
+            sid.append(np.repeat(np.arange(b, dtype=np.int64), n))
+            nid.append(np.tile(np.arange(n, dtype=np.int64), b))
+            pos.append(np.tile(np.asarray(self.tasks[name].spec.pos), b))
+        tid, sid, nid = map(np.concatenate, (tid, sid, nid))
+        same = (tid[:, None] == tid[None]) & (sid[:, None] == sid[None])
+        static_adj = np.zeros((tid.size, tid.size), bool)
+        off = 0
+        for name, b, n in metas:
+            a = np.asarray(self.tasks[name].spec.adjacency)
+            sel = slice(off, off + b * n)
+            static_adj[sel, sel] = (same[sel, sel]
+                                    & a[nid[sel][:, None], nid[sel][None, :]])
+            off += b * n
+        onehot = tid[None, :] == np.arange(len(metas))[:, None]
+        dev = self.device
+        consts = _ConcatConsts(
+            *(torch.as_tensor(a, device=dev) for a in (tid, sid, nid,
+                                                       static_adj, same)),
+            onehot=torch.as_tensor(onehot, dtype=torch.float32, device=dev),
+            pos=torch.as_tensor(np.concatenate(pos), dtype=torch.float32,
+                                device=dev))
+        self._concat_cache[key] = consts
+        return consts
+
+    def _concat_adjacency(self, metas, batches: Dict[str, Batch],
+                          c: _ConcatConsts) -> torch.Tensor:
+        """Block-diagonal in-neighbour mask over the concatenated node set:
+        the static base graphs plus each LTA-style task's label-dependent
+        forecast edges (lta_full_adjacency, as conditions on per-row ids)."""
+        adj = c.static_adj
+        for ti, (name, b, n) in enumerate(metas):
+            spec = self.tasks[name].spec
+            if not spec.lta_extra:
+                continue
+            verb = batches[name]["y"][..., 0]            # (b, n)
+            ni = (verb == -1).sum(1)                     # (b,)
+            nf = (verb > 0).sum(1)
+            is_t = c.tid == ti
+            # rows of other tasks may carry sample ids beyond this batch;
+            # is_t masks them, the clamp keeps the gather in range
+            row = torch.clamp_max(c.sid, b - 1)
+            ni_r, nf_r = ni[row], nf[row]
+            src_lo = torch.clamp_min(torch.ceil(ni_r - spec.radius).long(), 0)
+            src_ok = is_t & (c.nid >= src_lo) & (c.nid < ni_r)
+            fc = is_t & (c.nid >= ni_r) & (c.nid < ni_r + nf_r)
+            adj = adj | (fc[:, None] & src_ok[None, :] & c.same)
+        return adj
+
+    def fused_backbone_features(self, batches: Dict[str, Batch],
+                                names: Sequence[str], train: bool,
+                                generator: Optional[torch.Generator]
+                                ) -> Dict[str, Tuple[torch.Tensor,
+                                                     torch.Tensor]]:
+        """Pool the node sets of ALL task branches in one product, then
+        reason per layout. Needs every task to share (S, D)."""
+        xs, metas = [], []
+        for name in names:
+            x = self.expand_x(name, batches[name]["x"]).to(self.compute_dtype)
+            b, n = x.shape[0], x.shape[1]
+            xs.append(x.reshape(1, b * n, x.shape[2], x.shape[3]))
+            metas.append((name, b, n))
+        h_all = self.backbone.pool(torch.cat(xs, 1), train, generator)[0]
+        masks = [batches[name]["valid"][:, None].expand(b, n)
+                 for name, b, n in metas]
+        layout = self._resolve_layout(sum(b * n for _, b, n in metas))
+        if layout == "concat":
+            c = self._concat_static(metas)
+            adj_cc = self._concat_adjacency(metas, batches, c)
+            mask_cc = torch.cat([m.reshape(-1) for m in masks])
+            feats_cc = self.backbone.reason_concat(h_all[None], adj_cc, c.pos,
+                                                   mask_cc, c.onehot)
+            out, off = {}, 0
+            for (name, b, n), mask in zip(metas, masks):
+                feat = feats_cc[0, off:off + b * n].reshape(b, n, -1)
+                out[name] = (feat.float(), mask)
+                off += b * n
+            return out
+        hs, adjs, poss, off = [], [], [], 0
+        for name, b, n in metas:
+            hs.append(h_all[off:off + b * n].reshape(b, n, -1))
+            off += b * n
+            adjs.append(self._task_adj(name, batches[name]["y"]))
+            poss.append(self._task_consts[name][1])
+        feats = self.backbone.reason_multi(hs, adjs, poss, masks)
+        return {name: (feat.float(), mask)
+                for (name, _, _), feat, mask in zip(metas, feats, masks)}
+
+    # ---------------- phase 1: multi-task step ----------------
+    def _make_phase1_loss_fn(self, active: Tuple[str, ...]
+                             ) -> Callable[..., Tuple[torch.Tensor, Logs]]:
+        def loss_fn(batches: Dict[str, Batch],
+                    generator: Optional[torch.Generator]):
+            total, logs = 0.0, {}
+            fused = self._can_fuse(batches, active)
+            if fused:
+                feats = self.fused_backbone_features(batches, active, True,
+                                                     generator)
+            for name in active:
+                batch = batches[name]
+                if fused:
+                    feat, node_mask = feats[name]
+                else:
+                    feat, node_mask = self.backbone_features(
+                        batch, name, True, generator)
+                head = self.tasks[name].head
+                tfeat = head.forward_features(feat, True, generator)
+                logits = head.forward_logits(
+                    tfeat, node_mask if name == "oscc" else None, True,
+                    generator)
+                per_elem = _phase1_task_loss(name, logits, batch["y"])
+                mask = batch["valid"] if per_elem.ndim == 1 else node_mask
+                loss = masked_mean(per_elem, mask)
+                logs[f"{name}_loss"] = loss
+                total = total + self.tasks[name].weight * loss
+            return total, logs
+
+        return loss_fn
+
+    def _make_inner_step(self, optimizer: Adam, active: Tuple[str, ...]):
+        loss_fn = self._make_phase1_loss_fn(active)
+
+        def inner_step(opt_state: AdamState, batches: Dict[str, Batch],
+                       generator: Optional[torch.Generator],
+                       log_norms: bool) -> Logs:
+            params = self.params()
+            names = optimizer.trainable_names(params)
+            total, logs = loss_fn(batches, generator)
+            # gradients of the trainable leaves only (torch grad=None for
+            # the rest); a trainable leaf outside the graph gets zeros, as
+            # in JAX
+            grads = torch.autograd.grad(total, [params[n] for n in names],
+                                        materialize_grads=True)
+            logs = {k: v.detach() for k, v in logs.items()}
+            if log_norms:
+                with torch.no_grad():
+                    logs["grad_norm"] = _global_norm(grads)
+                    logs["param_norm"] = _global_norm(list(params.values()))
+            optimizer.apply(dict(zip(names, grads)), opt_state, params)
+            return logs
+
+        return inner_step
+
+    def make_train_step(self, optimizer: Adam, active: Tuple[str, ...],
+                        log_norms: bool = True):
+        """One step over the active tasks:
+        ``step(opt_state, batches, generator, lr) -> logs``. Parameters and
+        moments update in place; logs are device scalars (no host sync).
+        ``log_norms=False`` drops the global grad and param norms."""
+        inner = self._make_inner_step(optimizer, active)
+
+        def step(opt_state: AdamState, batches: Dict[str, Batch],
+                 generator: Optional[torch.Generator], lr: float) -> Logs:
+            opt_state.hyperparams["learning_rate"] = lr
+            return inner(opt_state, batches, generator, log_norms)
+
+        return step
+
+    def make_train_step_multi(self, optimizer: Adam, active: Tuple[str, ...],
+                              steps_per_call: int, log_norms=True):
+        """``steps_per_call`` sequential steps over as many batch groups:
+        ``multi_step(opt_state, batch_list, generator, lr) -> logs`` with a
+        leading K axis on each log. ``log_norms="last"`` computes the norms
+        on the last step only (unstacked scalars)."""
+        inner = self._make_inner_step(optimizer, active)
+        last_only = log_norms == "last"
+
+        def multi_step(opt_state: AdamState,
+                       batch_list: Sequence[Dict[str, Batch]],
+                       generator: Optional[torch.Generator],
+                       lr: float) -> Logs:
+            opt_state.hyperparams["learning_rate"] = lr
+            all_logs: List[Logs] = []
+            for k in range(steps_per_call):
+                norms = (k == steps_per_call - 1) if last_only else log_norms
+                all_logs.append(inner(opt_state, batch_list[k], generator,
+                                      norms))
+            logs = {key: torch.stack([l[key] for l in all_logs])
+                    for key in all_logs[0]}
+            if last_only:
+                logs.update({k: v for k, v in all_logs[-1].items()
+                             if k not in all_logs[0]})
+            return logs
+
+        return multi_step

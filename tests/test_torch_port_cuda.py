@@ -1,0 +1,47 @@
+"""The fused-Adam CUDA kernel against its plain PyTorch version, on the card.
+
+Skips on a host without CUDA: the kernel has no CPU mode. This file imports
+only torch and the port, so it runs where JAX is not installed:
+``python -m pytest --noconftest tests/test_torch_port_cuda.py``."""
+
+import pytest
+import torch
+
+from egopack_torch.ops import fused_adam as tfa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_kernel_matches_plain_version_on_the_card(moments):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(1536 * 3, 1024), (1024,), (33, 7), (115, 1024), (1,)] * 14
+    m_dtype = getattr(torch, moments)
+
+    def leaves():
+        gen.manual_seed(0)
+        ps = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+        ms = [torch.zeros(s, device="cuda", dtype=m_dtype) for s in shapes]
+        vs = [torch.zeros(s, device="cuda", dtype=m_dtype) for s in shapes]
+        return ps, ms, vs
+
+    kern, plain = leaves(), leaves()
+    launches = tfa.fused_adam.launches
+    for count in (1, 2, 3):
+        grads = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+        bc1, bc2 = tfa.bias_corrections(0.9, 0.999, count)
+        kw = dict(wd=1e-5, b1=0.9, b2=0.999, eps=1e-8)
+        tfa.fused_adam(kern[0], grads, kern[1], kern[2], 1e-3, bc1, bc2, **kw)
+        bct = torch.tensor([bc1, bc2], device="cuda")
+        for p, g, m, v in zip(plain[0], grads, plain[1], plain[2]):
+            tfa.fused_adam_reference(p, g, m, v, 1e-3, bct[0], bct[1], **kw)
+    torch.cuda.synchronize()
+    assert tfa.fused_adam.launches - launches == 3 * 2  # 70 leaves, 64 a launch
+    # built with --fmad=false the two agree bit for bit; one unit in the
+    # last place of the stored dtype is the stated tolerance
+    ulp = 2.0 ** -23 if moments == "float32" else 2.0 ** -7
+    for a, b in zip(sum(kern, []), sum(plain, [])):
+        torch.testing.assert_close(a, b, rtol=ulp if a.dtype == m_dtype
+                                   else 2.0 ** -23, atol=0)
+    assert all(torch.isfinite(p).all() for p in kern[0])
