@@ -5,14 +5,19 @@
 
 Phases, any failure exits non-zero and prints no result:
 
-1. build   - compile every kernel of the path from ``egopack_torch/ops/csrc``
-             with nvcc for sm_90a (into ``egopack_torch/_build/``).
+1. build   - compile every kernel of the paths from ``egopack_torch/ops/csrc``
+             with nvcc for sm_90a (into ``egopack_torch/_build/``), one nvcc
+             per source, all started together.
 2. kernels - fused Adam against its plain PyTorch version over the full-width
              leaf set (61 trainable leaves + the frozen OSCC head), 3 steps
              with float32 and 3 with bfloat16 moments. Tolerance: one unit in
              the last place of the stored dtype (the kernel is built with
              --fmad=false and is expected to agree bit for bit); frozen
-             leaves bit-identical.
+             leaves bit-identical. The cosine-kNN kernel against its plain
+             version at T=3, M=64, F=1024, k=8 for P=2048 (1900 valid),
+             P=1999 (80% valid), P=55,040 (50,000 valid) and P=256 (5 valid):
+             distances within 1e-5, indices equal but for near-ties (two
+             distances within 1e-5), whose count is printed.
 3. train   - the phase-1 AR+LTA+PNR train step at full width (hidden 1024,
              feat 1536, batch 16 per task, fused Adam, dropout 0.5 from a
              seeded generator): 3 warm-up + 20 timed steps. Launch counts are
@@ -20,10 +25,19 @@ Phases, any failure exits non-zero and prints no result:
              trainable parameters, an unchanged OSCC head. Then one step with
              dropout off against the same step with the plain Adam, and a
              small model on the card against the same model on the CPU.
-4. numbers - ms per step; the kernel's device time per step (f32 and bf16
-             moments), its launches and its bound; the plain version's time;
-             ``torch.optim.Adam(fused=True)`` on the same tensors as the
-             library yardstick (timed only; the port never calls it).
+4. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
+             phase-1 state just trained merged into the phase-2 system, banks
+             built on the card from 8 seeded AR batches of 256 clips, then 3
+             warm-up + 20 timed steps with the kNN kernel and fused Adam
+             (counts zeroed just before, read just after: one launch of each
+             per step). Finite losses, moved trainable leaves, the other
+             heads and the banks bit-identical. One step with the plain kNN
+             from the same state, the eval step, and a small phase-2 model on
+             the card against the CPU.
+5. numbers - ms per step; each kernel's device time, launches and bound; the
+             plain versions' times; one library call each as yardstick (timed
+             only; the port never calls it): ``torch.optim.Adam(fused=True)``
+             and ``torch.topk`` over the masked ``1 - bmm``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +50,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -43,8 +58,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import egopack_torch
 from egopack_torch.device import make_generator
-from egopack_torch.entry import ACTIVE, build_mtl_step, build_system
+from egopack_torch.entry import (ACTIVE, AUX_TASKS, build_egopack_step,
+                                 build_mtl_step, build_system,
+                                 synthetic_batches)
 from egopack_torch.ops import fused_adam as tfa
+from egopack_torch.ops import knn_topk as tkt
+from egopack_torch.ops.knn import prototype_topk
 from egopack_torch.profiling import busy_us, device_events
 from egopack_torch.train import optim as topt
 from egopack_torch.train.system import CKPT_KEYS
@@ -52,12 +71,16 @@ from egopack_torch.train.system import CKPT_KEYS
 HERE = Path(__file__).resolve().parent
 FEAT, HIDDEN, BATCH = 1536, 1024, 16
 LR, WD = 1e-5, 1e-5
+LR_EGO = 1e-6  # the phase-2 Adam rate (egopack_tpu/train/driver.py:627-636)
 WARMUP, TIMED = 3, 20
 TRAINABLE = ["temporal_graph"] + [CKPT_KEYS[t] for t in ACTIVE]
 F32_ULP, BF16_ULP = 2.0 ** -23, 2.0 ** -7
 # float32 operations of one Adam element: decay 2, moments 6, update 5
 ADAM_FLOPS_PER_ELEM = 13
-FP32_PEAK = 67e12  # FLOP/s outside the tensor cores, H100 SXM data sheet
+K, PROTO_BATCH, PROTO_BATCHES = 8, 256, 8
+KNN_TOL = 1e-5
+# (P, valid rows) of the kNN kernel checks; valid < 1 is a random share
+KNN_CASES = ((2048, 1900), (1999, 0.8), (55040, 50000), (256, 5))
 
 
 def log(msg: str) -> None:
@@ -84,6 +107,18 @@ def hbm_bytes_per_s(name: str) -> float:
     raise RuntimeError(f"no memory rate on record for {name!r}")
 
 
+def fp32_peak(name: str) -> float:
+    """float32 FLOP/s outside the tensor cores by SKU (NVIDIA data
+    sheets)."""
+    if "H100" in name:
+        if "PCIe" in name:
+            return 51e12
+        if "NVL" in name:
+            return 60e12
+        return 67e12  # SXM
+    raise RuntimeError(f"no float32 peak on record for {name!r}")
+
+
 def time_ms(fn, iters: int) -> float:
     """Time per call of ``iters`` back-to-back calls by CUDA events; it
     includes any gap in which the card waits for the host."""
@@ -98,20 +133,36 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, by_name=None, windows: int = 3) -> float:
     """Device time of ``fn`` per call: the time the card is busy with the
     kernels, copies and fills of ``iters`` calls (``torch.profiler``), over
-    ``iters``. Gaps in which the card waits for the host are not counted."""
+    ``iters``. Gaps in which the card waits for the host are not counted.
+
+    The profiler now and then drops device events from a window (seen on
+    the card: a window with none, another with about half), which reads as
+    a shorter time. So ``windows`` windows are profiled and only those with
+    the most events count; if every window is empty, this raises.
+    ``by_name``: a dict that receives each kernel's own ms per call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    require(bool(events), "the profiler recorded no device events")
-    return busy_us(events) / 1e3 / iters
+    taken = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        taken.append(device_events(prof))
+    most = max(len(events) for events in taken)
+    require(most > 0, "the profiler recorded no device events")
+    kept = [events for events in taken if len(events) == most]
+    if by_name is not None:
+        for events in kept:
+            for e in events:
+                us = e.time_range.end - e.time_range.start
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + us / 1e3 / iters / len(kept))
+    return sum(busy_us(events) for events in kept) / len(kept) / 1e3 / iters
 
 
 def require(ok: bool, msg: str) -> None:
@@ -169,6 +220,46 @@ def phase_kernels(dev) -> float:
             f"leaves: max_abs_err {err!r}")
         worst = max(worst, err)
     return worst
+
+
+def knn_inputs(gen, t: int, m: int, p: int, f: int, valid):
+    """Seeded normal features and bank on the card; masked bank rows are
+    zeros, as a padded bank's are (0/0 if they were ever normalised)."""
+    dev = gen.device
+    feats = torch.randn((t, m, f), device=dev, generator=gen)
+    bank = torch.randn((t, p, f), device=dev, generator=gen)
+    if isinstance(valid, int):
+        mask = (torch.arange(p, device=dev) < valid).expand(t, p).contiguous()
+    else:
+        mask = torch.rand((t, p), device=dev, generator=gen) < valid
+    bank[~mask] = 0.0
+    return feats, bank, mask
+
+
+def knn_err(dist: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest distance difference over the entries finite in both."""
+    ok = torch.isfinite(dist) & torch.isfinite(ref)
+    return max_err(dist[ok], ref[ok])
+
+
+def phase_knn_kernel(dev):
+    """The kNN kernel against its plain version; returns (max_abs_err,
+    near-tie swaps)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, swaps = 0.0, 0
+    for p, valid in KNN_CASES:
+        feats, bank, mask = knn_inputs(gen, 3, 64, p, HIDDEN, valid)
+        idx, dist = tkt.cosine_knn(feats, bank, mask, K)
+        ref_idx, ref_dist = tkt.cosine_knn_reference(feats, bank, mask, K)
+        torch.cuda.synchronize()
+        require(not torch.isnan(dist).any(), f"P={p}: NaN distances")
+        n = tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, KNN_TOL)
+        err = knn_err(dist, ref_dist)
+        log(f"kernels: cosine_knn vs plain, T=3 M=64 F={HIDDEN} k={K} P={p} "
+            f"valid {int(mask[0].sum())}: max_abs_err {err!r}, near-tie "
+            f"swaps {n}")
+        worst, swaps = max(worst, err), swaps + n
+    return worst, swaps
 
 
 def snapshot(system):
@@ -295,7 +386,7 @@ def phase_numbers(mtl, dev, card: str) -> dict:
     per_call = tfa.fused_adam.launches - launches0
     rate = hbm_bytes_per_s(card)
     bound_bytes_ms = 28 * numel / rate * 1e3
-    bound_ops_ms = ADAM_FLOPS_PER_ELEM * numel / FP32_PEAK * 1e3
+    bound_ops_ms = ADAM_FLOPS_PER_ELEM * numel / fp32_peak(card) * 1e3
     log(f"numbers: {numel} trainable elements in {len(names)} leaves, "
         f"fused_adam {per_call} launch(es) per step; device ms per step "
         f"(torch.profiler): fused_adam {ms['fused']!r}, bf16 moments "
@@ -315,27 +406,280 @@ def phase_numbers(mtl, dev, card: str) -> dict:
             else "operations"}
 
 
-def run(dev, card: str):
-    """Every phase after the checks; returns (kernels, steps, ms/step)."""
-    t0 = time.perf_counter()
-    tfa.load_library()
-    log(f"build: fused_adam.cu with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+def secondary_features(ego):
+    """The kNN inputs of the EgoPack step on its batch: the aux heads'
+    projections of the OSCC backbone features, stacked over the tasks."""
+    system = ego.system
+    with torch.no_grad():
+        feat, _ = system.backbone_features(ego.batches["oscc"], "oscc", False,
+                                           None)
+        flat = feat.reshape(-1, feat.shape[-1])
+        return torch.stack([system.tasks[t].head.forward_features(flat)
+                            for t in AUX_TASKS])
 
-    err = phase_kernels(dev)
+
+def restore(ego, params0, state0) -> None:
+    with torch.no_grad():
+        for n, p in ego.system.params().items():
+            p.copy_(params0[n])
+        for mine, saved in ((ego.opt_state.mu, state0.mu),
+                            (ego.opt_state.nu, state0.nu)):
+            for n in mine:
+                mine[n].copy_(saved[n])
+    ego.opt_state.count = state0.count
+
+
+def phase_egopack(mtl, dev, card: str):
+    """Phase 1 -> phase 2 in memory at full width."""
+    t0 = time.perf_counter()
+    proto = [synthetic_batches(mtl.system, PROTO_BATCH, FEAT, seed=100 + i,
+                               names=("ar",))["ar"]
+             for i in range(PROTO_BATCHES)]
+    ego = build_egopack_step(BATCH, FEAT, HIDDEN,
+                             loaded=mtl.system.model.state_dict(),
+                             proto_batches=proto, device=dev)
+    del proto
+    bank = ego.banks["ar"]
+    p_pad, n_valid = bank.values.shape[0], bank.num_valid
+    log(f"egopack: phase-2 system with the phase-1 state merged in; banks "
+        f"from {PROTO_BATCHES} AR batches of {PROTO_BATCH} clips: num_valid "
+        f"{n_valid}, P_pad {p_pad} ({time.perf_counter() - t0:.1f} s)")
+    params = ego.system.params()
+    trainable = set(ego.optimizer.trainable_names(params))
+    require(len(trainable) == 53, f"{len(trainable)} trainable leaves, not 53")
+    log(f"egopack: {len(trainable)} trainable leaves, "
+        f"{sum(params[n].numel() for n in trainable)} elements")
+    before = snapshot(ego.system)
+    banks0 = {t: b.values.clone() for t, b in ego.banks.items()}
+
+    tfa.fused_adam.launches = 0
+    tkt.cosine_knn.launches = 0
+    for _ in range(WARMUP):
+        ego(LR_EGO)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    logs = [ego(LR_EGO) for _ in range(TIMED)]
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    knn_launches = tkt.cosine_knn.launches
+    adam_launches = tfa.fused_adam.launches
+    steps = WARMUP + TIMED
+    step_ms = start.elapsed_time(end) / TIMED
+    require(knn_launches == steps and adam_launches == steps,
+            f"{knn_launches} kNN and {adam_launches} fused_adam launches in "
+            f"{steps} steps, not one each per step")
+    for i, l in enumerate(logs):
+        for k, v in l.items():
+            require(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
+    after = snapshot(ego.system)
+    for n in before:
+        if n in trainable:
+            require(not torch.equal(before[n], after[n]), f"{n} did not move")
+        else:
+            require(torch.equal(before[n], after[n]), f"frozen {n} moved")
+    for t, b in ego.banks.items():
+        require(torch.equal(b.values, banks0[t]), f"bank {t} changed")
+    last = {k: round(float(v), 6) for k, v in logs[-1].items()}
+    log(f"egopack: {steps} steps, novel OSCC batch {BATCH}, aux "
+        f"{'+'.join(AUX_TASKS)}, GraphONE depth 3 k={K}, fused Adam; last "
+        f"logs {json.dumps(last)}")
+    log(f"egopack: {step_ms!r} ms/step (CUDA events over {TIMED} steps; host "
+        f"{host_s / TIMED * 1e3!r} ms/step) on {card}")
+    log(f"egopack: cosine_knn launches {knn_launches}, fused_adam launches "
+        f"{adam_launches} in {steps} steps")
+
+    # one step with the plain kNN from the same state
+    feats = secondary_features(ego)
+    masks = torch.stack([ego.banks[t].mask for t in AUX_TASKS])
+    values = torch.stack([ego.banks[t].values for t in AUX_TASKS])
+    idx, dist = prototype_topk(feats, values, masks, K, impl="cuda")
+    ref_idx, ref_dist = prototype_topk(feats, values, masks, K, impl="plain")
+    swaps = tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, KNN_TOL)
+    params0 = snapshot(ego.system)
+    state0 = topt.AdamState(dict(ego.opt_state.hyperparams),
+                            ego.opt_state.count,
+                            {n: v.clone() for n, v in ego.opt_state.mu.items()},
+                            {n: v.clone() for n, v in ego.opt_state.nu.items()})
+    outs, losses = {}, {}
+    for impl in ("auto", "plain"):
+        restore(ego, params0, state0)
+        ego.graphone.knn_impl = impl
+        losses[impl] = ego(LR_EGO)["oscc_loss"]
+        outs[impl] = snapshot(ego.system)
+    ego.graphone.knn_impl = "auto"
+    err = 0.0
+    if swaps == 0:
+        torch.testing.assert_close(losses["auto"], losses["plain"],
+                                   rtol=1e-5, atol=1e-6)
+        for n in outs["auto"]:
+            a, b = outs["auto"][n], outs["plain"][n]
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m: f"one step {n}: {m}")
+            err = max(err, max_err(a, b))
+    log(f"egopack: the step's kNN, kernel vs plain: near-tie swaps {swaps}, "
+        f"max_abs_err {knn_err(dist, ref_dist)!r}; one step kernel vs plain "
+        f"kNN: " + (f"losses {float(losses['auto'])!r} and "
+                    f"{float(losses['plain'])!r}, parameters max_abs_err "
+                    f"{err!r}" if swaps == 0 else
+                    "not compared (the neighbours differ at a near-tie)"))
+
+    eval_step = ego.system.make_eval_step("oscc", aux=AUX_TASKS,
+                                          graphone=ego.graphone,
+                                          late_fusion=True)
+    logits, per_elem, post, _ = eval_step(ego.batches["oscc"], ego.banks)
+    require(tuple(logits.shape) == (BATCH, 2)
+            and bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(per_elem).all()),
+            f"eval logits {logits}")
+    log(f"egopack: eval step OSCC, GraphONE + late fusion: logits "
+        f"{tuple(logits.shape)} finite, post features {tuple(post.shape)}")
+    feats_m = (feats, values, masks)
+    return ego, step_ms, knn_launches, steps, feats_m
+
+
+def phase_small_egopack_vs_cpu(dev) -> None:
+    """A small phase-2 model, three steps, on the card (kNN kernel) and on
+    the CPU (plain kNN) from the same weights, banks and batches.
+    Tolerance rtol 1e-4 / atol 1e-5."""
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cpu = build_egopack_step(2, 16, 32, p_pad=128, fill=100, device="cpu")
+    gpu = build_egopack_step(2, 16, 32, p_pad=128, fill=100, device=dev)
+    gpu.system.load_state({k: v.to(dev) for k, v in
+                           cpu.system.model.state_dict().items()})
+    for t in cpu.banks:
+        require(torch.equal(gpu.banks[t].values.cpu(), cpu.banks[t].values),
+                f"small banks differ for {t}")
+    launches = tkt.cosine_knn.launches
+    for step in range(3):
+        lc, lg = cpu(1e-3), gpu(1e-3)
+        for k in lc:
+            torch.testing.assert_close(lg[k].cpu(), lc[k], **tol,
+                                       msg=lambda m: f"step {step} {k}: {m}")
+    require(tkt.cosine_knn.launches - launches == 3,
+            "the small model on the card did not launch the kNN kernel")
+    pc, pg = snapshot(cpu.system), snapshot(gpu.system)
+    for n in pc:
+        torch.testing.assert_close(pg[n].cpu(), pc[n], **tol)
+    log("egopack: small model, 3 steps, card (kNN kernel) against CPU (plain "
+        "kNN): losses, norms and parameters agree (rtol 1e-4, atol 1e-5)")
+
+
+def knn_bound(feats, mask, k: int, card: str):
+    """Least time for the kNN on these inputs: the products with the valid
+    bank rows (2*M*F flops each) over the float32 peak, against each valid
+    bank row, the features and the mask read once and the (idx, dist)
+    output written once over the memory rate."""
+    t, m, f = feats.shape
+    valid = int(mask.sum())
+    flops = 2 * m * f * valid
+    nbytes = 4 * (valid * f + t * m * f) + mask.numel() + 8 * t * m * k
+    ops_ms = flops / fp32_peak(card) * 1e3
+    bytes_ms = nbytes / hbm_bytes_per_s(card) * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), flops, nbytes
+
+
+def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
+    """Kernel, plain version and library call on the main path's kNN inputs
+    and on a full-taxonomy bank (P=55,040), each timed twice in turns by
+    the profiler's device time."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = {"main": main_inputs,
+              "full": knn_inputs(gen, 3, 64, 55040, HIDDEN, 50000)}
+
+    def library(feats, bank, mask):
+        d = 1.0 - torch.bmm(torch.nn.functional.normalize(feats, dim=-1),
+                            torch.nn.functional.normalize(bank, dim=-1)
+                            .transpose(1, 2))
+        return torch.topk(torch.where(mask[:, None, :], d, torch.inf), K,
+                          largest=False)
+
+    out = {}
+    for key, (feats, bank, mask) in shapes.items():
+        arms = {"kernel": lambda: tkt.cosine_knn(feats, bank, mask, K),
+                "plain": lambda: tkt.cosine_knn_reference(feats, bank, mask,
+                                                          K),
+                "library": lambda: library(feats, bank, mask)}
+        runs = {a: [] for a in arms}
+        order = ("plain", "kernel", "library")
+        for seq in (order, order[::-1]):
+            for a in seq:
+                runs[a].append(device_ms(arms[a], 20))
+        ms = {a: sum(v) / len(v) for a, v in runs.items()}
+        kernel_parts = {}
+        device_ms(arms["kernel"], 20, kernel_parts)
+        passes = {p: sum(v for n, v in kernel_parts.items() if p in n)
+                  for p in ("knn_partial", "knn_merge")}
+        bound, by, flops, nbytes = knn_bound(feats, mask, K, card)
+        log(f"numbers: cosine_knn T={feats.shape[0]} M={feats.shape[1]} "
+            f"F={feats.shape[2]} P={bank.shape[1]} ({int(mask.sum())} valid) "
+            f"k={K}: device ms per call (torch.profiler) kernel "
+            f"{ms['kernel']!r}, plain {ms['plain']!r}, torch.topk over masked "
+            f"1-bmm {ms['library']!r}; bound {bound!r} by {by} ({flops} "
+            f"flop, {nbytes} B); runs {json.dumps(runs)}; the kernel's "
+            f"passes {json.dumps(passes)}; on {card}")
+        out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "library_ms": ms["library"], "bound_ms": bound,
+                    "bound_by": by}
+    return out
+
+
+def build_kernels() -> None:
+    """One nvcc per kernel source, all started together."""
+    def timed(load):
+        t0 = time.perf_counter()
+        load()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {name: pool.submit(timed, load) for name, load in
+                (("fused_adam", tfa.load_library),
+                 ("knn_topk", tkt.load_library))}
+        times = {name: job.result() for name, job in jobs.items()}
+    log(f"build: fused_adam.cu {times['fused_adam']:.1f} s, knn_topk.cu "
+        f"{times['knn_topk']:.1f} s with nvcc for sm_90a, in parallel; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def run(dev, card: str):
+    """Every phase after the checks; returns the kernels' JSON entries and
+    a summary of the two paths."""
+    build_kernels()
+
+    adam_err = phase_kernels(dev)
+    knn_err_max, knn_swaps = phase_knn_kernel(dev)
     mtl, step_ms, launches, steps = phase_train(dev, card)
     phase_small_vs_cpu(dev)
+    ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(mtl, dev,
+                                                                   card)
+    phase_small_egopack_vs_cpu(dev)
     nums = phase_numbers(mtl, dev, card)
+    knn_nums = phase_knn_numbers(main_knn, dev, card)
+    del ego
 
     kernels = [{
         "name": "fused_adam", "route": "cuda",
         "source": "egopack_torch/ops/csrc/fused_adam.cu",
         "replaces": "egopack_tpu/ops/pallas/fused_adam.py:116",
-        "launches": launches, "max_abs_err": err, "ms": nums["ms"],
+        "launches": launches, "max_abs_err": adam_err, "ms": nums["ms"],
         "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
+    }, {
+        "name": "cosine_knn", "route": "cuda",
+        "source": "egopack_torch/ops/csrc/knn_topk.cu",
+        "replaces": "egopack_tpu/ops/pallas/knn_topk.py:123",
+        "launches": knn_launches, "max_abs_err": knn_err_max,
+        **knn_nums["main"],
     }]
-    return kernels, steps, step_ms
+    summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
+               f"{step_ms!r} ms/step), cosine_knn ({knn_launches} launches "
+               f"in {ego_steps} phase-2 steps; {ego_ms!r} ms/step; "
+               f"{knn_swaps} near-tie swaps in the kernel checks)")
+    return kernels, summary
 
 
 def main() -> int:
@@ -354,10 +698,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}; ninja {shutil.which('ninja')}")
 
-    kernels, steps, step_ms = run(dev, card)
-    log(f"kernels launched and checked: fused_adam "
-        f"({kernels[0]['launches']} launches in {steps} train steps; "
-        f"{step_ms!r} ms/step)")
+    kernels, summary = run(dev, card)
+    log(f"kernels launched and checked: {summary}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
-"""Entry points of the phase-1 multi-task train step (counterpart of
-``__graft_entry__._build_system`` / ``_synthetic_batches`` and of what
-``bench.py:build_mtl_step`` drives).
+"""Entry points of the phase-1 multi-task train step and the phase-2
+EgoPack step (counterpart of ``__graft_entry__._build_system`` /
+``_synthetic_batches`` and of what ``bench.py:build_mtl_step`` and
+``build_egopack_step`` drive).
 
-``build_mtl_step`` assembles the whole path: system, seeded init, the
+``build_mtl_step`` assembles the phase-1 path: system, seeded init, the
 driver's trainable mask (backbone + active heads; the OSCC head stays
 frozen), Adam and the train step, plus synthetic batches made from a numpy
-seed exactly as the JAX entry makes them.
+seed exactly as the JAX entry makes them. ``build_egopack_step`` assembles
+the novel-OSCC phase-2 path as ``train/driver.py:train_egopack`` does:
+phase-2 system, the phase-1 state merged in, prototype banks, GraphONE,
+Adam over the phase-2 trainable mask and the EgoPack step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,35 +23,45 @@ import torch
 from .data import graphs as G
 from .device import DeviceLike, make_generator, resolve_device
 from .models.backbone import TemporalGraph
+from .models.graphone import (GraphONE, PrototypeBank, build_prototypes,
+                              make_prototype_step)
 from .models.heads import LTATask, OSCCTask, PNRTask, RecognitionTask
 from .models.pooling import TRNPooling
 from .train import optim as topt
+from .train.checkpoint import merge_loaded_params
 from .train.system import CKPT_KEYS, MultiTaskSystem, TaskSetup
 
 N_VERBS, N_NOUNS = 115, 478  # Ego4D v1 FHO taxonomy sizes
 ACTIVE = ("ar", "lta", "pnr")
+# phase-2 aux classifier sets (__graft_entry__.py:34-36)
+PHASE2_AUX = {"ar": ("lta", "pnr"), "oscc": ("ar", "lta", "pnr"),
+              "lta": ("ar", "pnr"), "pnr": ("ar", "lta")}
 
 
 def build_system(hidden: int, tp_hidden: int, feat_dim: int,
                  num_segments: int = 3, tp_dropout: float = 0.5, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 fused_layout: str = "auto",
+                 fused_layout: str = "auto", phase2: bool = False,
                  device: DeviceLike = None) -> MultiTaskSystem:
-    """Backbone (TRN pooling + 3 SAGE layers) and the four phase-1 heads.
-    Parameters are zeros until ``init_params`` or ``load_state``."""
+    """Backbone (TRN pooling + 3 SAGE layers) and the four heads; with
+    ``phase2`` each head also carries its aux classifier set. Parameters are
+    zeros until ``init_params`` or ``load_state``."""
     dev = resolve_device(device)
     pooling = TRNPooling(feat_dim, hidden, num_segments, hidden_size=tp_hidden,
                          dropout=tp_dropout, device=dev)
     backbone = TemporalGraph(feat_dim, hidden, depth=3,
                              temporal_pooling=pooling,
                              num_segments=num_segments, device=dev)
+    aux = PHASE2_AUX if phase2 else {t: None for t in PHASE2_AUX}
     heads = {
         "ar": RecognitionTask("ar", hidden, hidden, heads=(N_VERBS, N_NOUNS),
-                              device=dev),
-        "oscc": OSCCTask("oscc", hidden, hidden, device=dev),
+                              aux_tasks=aux["ar"], device=dev),
+        "oscc": OSCCTask("oscc", hidden, hidden, aux_tasks=aux["oscc"],
+                         device=dev),
         "lta": LTATask("lta", hidden, hidden, heads=(N_VERBS, N_NOUNS),
+                       aux_tasks=aux["lta"], device=dev),
+        "pnr": PNRTask("pnr", hidden, hidden, aux_tasks=aux["pnr"],
                        device=dev),
-        "pnr": PNRTask("pnr", hidden, hidden, device=dev),
     }
     specs = {"ar": G.ar_spec(9, 1.0), "oscc": G.oscc_spec(1.0),
              "lta": G.lta_spec(2, 20, 1.0), "pnr": G.pnr_spec(16, 1.0)}
@@ -59,14 +73,20 @@ def build_system(hidden: int, tp_hidden: int, feat_dim: int,
 
 
 def synthetic_batches(system: MultiTaskSystem, batch: int, feat_dim: int,
-                      num_segments: int = 3, seed: int = 0
+                      num_segments: int = 3, seed: int = 0,
+                      names: Optional[Sequence[str]] = None
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Production-layout batches on the system's device, drawn with numpy
     exactly as the JAX entry draws them: LTA ships its 2 input clips, PNR
-    un-repeated frames."""
+    un-repeated frames. ``names`` stops after the last named task (the
+    draws of the tasks before it are made all the same)."""
     rng = np.random.default_rng(seed)
     out = {}
-    for name, setup in system.tasks.items():
+    order = list(system.tasks)
+    if names is not None:
+        order = order[:max(order.index(n) for n in names) + 1]
+    for name in order:
+        setup = system.tasks[name]
         n = setup.spec.num_nodes
         if name == "lta":
             x = rng.normal(size=(batch, 2, num_segments, feat_dim))
@@ -89,6 +109,8 @@ def synthetic_batches(system: MultiTaskSystem, batch: int, feat_dim: int,
                 y[:, 2:, 0] = rng.integers(1, N_VERBS, (batch, n - 2))
                 y[:, 2:, 1] = rng.integers(0, N_NOUNS, (batch, n - 2))
         out[name] = {"x": x, "y": y, "valid": np.ones(batch, bool)}
+    if names is not None:
+        out = {n: out[n] for n in names}
     return to_device(out, system.device)
 
 
@@ -137,3 +159,98 @@ def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
                                                   seed=seed).items()
                if n in active}
     return MTLStep(system, optimizer, opt_state, step, batches, generator)
+
+
+# ---------------- phase 2: the novel-OSCC EgoPack step ----------------
+
+AUX_TASKS = ("ar", "lta", "pnr")
+
+
+def random_banks(p_pad: int, fill: int, hidden: int,
+                 device: DeviceLike = None) -> Dict[str, PrototypeBank]:
+    """Seeded normal banks for the aux tasks, the first ``fill`` of
+    ``p_pad`` rows valid (the bench's stand-in for banks built from data,
+    ``bench.py:312-321``)."""
+    rng = np.random.default_rng(3)
+    dev = resolve_device(device)
+    mask = torch.as_tensor(np.arange(p_pad) < fill, device=dev)
+    return {t: PrototypeBank(torch.as_tensor(
+        rng.normal(size=(p_pad, hidden)).astype(np.float32), device=dev), mask)
+        for t in AUX_TASKS}
+
+
+def prototype_banks(system: MultiTaskSystem,
+                    ar_batches: Iterable[Dict[str, torch.Tensor]]
+                    ) -> Dict[str, PrototypeBank]:
+    """The aux tasks' banks from a sweep over AR batches with the system's
+    current weights (``train/driver.py:580-596``), on the system's
+    device."""
+    step = make_prototype_step(system, AUX_TASKS, N_VERBS, N_NOUNS)
+    return build_prototypes(step, ar_batches, N_VERBS, N_NOUNS,
+                            n_tasks=len(AUX_TASKS), device=system.device)
+
+
+@dataclass
+class EgoPackStep:
+    system: MultiTaskSystem
+    graphone: GraphONE
+    banks: Dict[str, PrototypeBank]
+    optimizer: topt.Adam
+    opt_state: topt.AdamState
+    step: Callable
+    batches: Dict[str, Dict[str, torch.Tensor]]
+    generator: torch.Generator
+
+    def __call__(self, lr: float = 1e-6) -> Dict[str, torch.Tensor]:
+        return self.step(self.opt_state, self.banks, self.batches,
+                         self.generator, lr)
+
+
+def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
+                       hidden: int = 1024, *,
+                       loaded: Optional[Dict[str, torch.Tensor]] = None,
+                       banks: Optional[Dict[str, PrototypeBank]] = None,
+                       proto_batches: Optional[Iterable[Dict[str,
+                                                             torch.Tensor]]]
+                       = None, p_pad: int = 2048, fill: int = 1900,
+                       seed: int = 0, device: DeviceLike = None
+                       ) -> EgoPackStep:
+    """The phase-2 novel-OSCC EgoPack step at the bench configuration
+    (``bench.py:build_egopack_step``): aux tasks AR, LTA, PNR; frozen banks;
+    GraphONE k=8, depth 3, no residual, the kNN kernel on the card;
+    Adam(1e-6, wd 1e-5) with ``impl="fused"`` over ``temporal_graph``,
+    ``task/oscc`` and ``graphone``; backprop into the backbone, backbone in
+    eval mode, late fusion; f32 compute.
+
+    ``loaded``: a phase-1 torch state merged in with
+    ``merge_loaded_params``. Banks: ``banks`` as given, else built from
+    ``proto_batches`` (AR batches) with the merged weights, else seeded
+    random banks of ``p_pad`` rows with ``fill`` valid."""
+    dev = resolve_device(device)
+    system = build_system(hidden, hidden, feat_dim, phase2=True, device=dev)
+    generator = make_generator(seed, dev)
+    system.init_params(generator)
+    if loaded is not None:
+        fresh = system.model.state_dict()
+        system.load_state(merge_loaded_params(
+            fresh, {n: v.to(dev) for n, v in loaded.items()}))
+    if banks is None:
+        banks = (prototype_banks(system, proto_batches)
+                 if proto_batches is not None
+                 else random_banks(p_pad, fill, hidden, device=dev))
+    graphone = GraphONE(AUX_TASKS, features_size=hidden, hidden_size=hidden,
+                        k=8, depth=3, residual=False, device=dev)
+    graphone.reset_parameters(make_generator(seed + 2, dev))
+    system.attach_graphone(graphone)
+    trainable = ["temporal_graph", CKPT_KEYS["oscc"], "graphone"]
+    optimizer = topt.adam(1e-6, 1e-5,
+                          trainable_mask=topt.trainable_mask_fn(trainable),
+                          impl="fused")
+    opt_state = optimizer.init(system.params())
+    step = system.make_egopack_train_step(
+        optimizer, ("oscc",), graphone, backprop_temporal_graph=True,
+        temporal_graph_train_mode=False, late_fusion=True)
+    batches = synthetic_batches(system, batch, feat_dim, seed=seed,
+                                names=("oscc",))
+    return EgoPackStep(system, graphone, banks, optimizer, opt_state, step,
+                       batches, generator)

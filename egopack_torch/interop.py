@@ -1,13 +1,17 @@
 """Carry weights between the flax parameter tree and the port's modules.
 
 Flax tree, as numpy arrays: top-level keys ``temporal_graph``,
-``task/recognition``, ``task/lta``, ``task/oscc``, ``task/pnr``, then the
+``task/recognition``, ``task/lta``, ``task/oscc``, ``task/pnr`` and, in
+phase 2, ``graphone`` and (trainable banks) ``graphone_banks``, then the
 module path (``pooling/fc0/kernel``, ``sage0/lin_r/kernel``,
-``cls0/TLinear_0/bias``, ``gn1/scale``, ...).
+``cls0/TLinear_0/bias``, ``aux_ar_cls/TLinear_0/kernel``, ``gn1/scale``,
+``w_l``, ``ar``, ...). GraphONE's stacked stage weights and the bank values
+keep their flax names and layout: no transpose.
 
 Torch state: ``{dotted name: tensor}``, the names of the port's
 ``nn.Module`` tree (``temporal_graph.pooling.fc0.weight``,
-``task.recognition.cls0.TLinear_0.bias``, ``temporal_graph.gn1.weight``).
+``task.recognition.cls0.TLinear_0.bias``, ``temporal_graph.gn1.weight``,
+``graphone.w_l``, ``graphone_banks.ar``).
 A flax ``kernel (in, out)`` is a torch ``weight (out, in)``; a flax ``scale``
 is a torch ``weight`` of one dimension. ``to_flax(from_flax(p))`` returns
 ``p`` bit for bit.

@@ -54,7 +54,8 @@ def build(name: str, flags: Sequence[str] = ()) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *ARCH_FLAGS, *BASE_FLAGS, *flags, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -68,10 +69,15 @@ def build(name: str, flags: Sequence[str] = ()) -> Path:
 
 
 def load(name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build if needed, then load once per process."""
+    """Build if needed, then load once per process. Builds run outside the
+    lock, so two kernels can build at once (each into its own temporary
+    file, renamed into place)."""
     with _LOCK:
         lib = _LIBS.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name, flags)))
-            _LIBS[name] = lib
+    if lib is not None:
         return lib
+    path = build(name, flags)
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(path))
+        return _LIBS[name]

@@ -1,14 +1,21 @@
-"""The multi-task system, phase-1 part: backbone + task heads + the train
-step (counterpart of ``egopack_tpu/train/system.py``).
+"""The multi-task system: backbone + task heads + the train and eval steps
+(counterpart of ``egopack_tpu/train/system.py``).
 
 The multi-task loss is a sum over the active tasks, so one backward over it
 reproduces the reference's ``torch.stack(losses).sum().backward()``. The
 tasks' node sets are pooled in one product and, in the ``concat`` layout,
 reasoned over as one block-diagonal graph.
 
+Phase-2 (EgoPack) steps keep the reference's gradient topology
+(reference main_egopack.py:45-61): the aux-task features are detached before
+the GraphONE interaction, the k-NN edges are not differentiable,
+``backprop_temporal_graph=False`` stops gradients at the backbone output, and
+the GraphONE stages learn through the interacted features.
+
 Parameters live in ``MultiTaskSystem.model``, an ``nn.ModuleDict`` whose
-names follow the flax tree (``temporal_graph``, ``task.recognition``, ...;
-see ``interop.py``). The steps update them in place.
+names follow the flax tree (``temporal_graph``, ``task.recognition``, ...,
+``graphone``, ``graphone_banks``; see ``interop.py``). The steps update them
+in place.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch.nn as nn
 from ..data.graphs import GraphSpec
 from ..device import DeviceLike, resolve_device
 from ..models.backbone import TemporalGraph
+from ..models.graphone import GraphONE, PrototypeBank
 from ..ops.losses import bce_with_logits, cross_entropy, masked_mean
 from .optim import Adam, AdamState
 
@@ -35,6 +43,7 @@ CKPT_KEYS = {"ar": "task/recognition", "oscc": "task/oscc",
 
 Batch = Dict[str, torch.Tensor]
 Logs = Dict[str, torch.Tensor]
+Banks = Dict[str, PrototypeBank]
 
 
 @dataclass
@@ -83,6 +92,25 @@ def _phase1_task_loss(name: str, logits, y: torch.Tensor) -> torch.Tensor:
     if name == "pnr":
         return bce_with_logits(logits, y.float())  # (B, N)
     raise ValueError(name)
+
+
+def _phase2_task_loss(head: nn.Module, logits, y: torch.Tensor
+                      ) -> torch.Tensor:
+    """Phase-2 criteria are each head's ``compute_loss`` (reference
+    main_egopack.py:61; OSCC gains the label smoothing 0.1 that phase 1
+    lacks)."""
+    return head.compute_loss(logits, y)
+
+
+def _effective_banks(model: nn.ModuleDict, banks: Banks) -> Banks:
+    """``freeze=False``: when the bank values are parameters
+    (``graphone_banks``), the banks are rebuilt from them so that gradients
+    reach them (the reference's ``nn.Embedding.from_pretrained(freeze=False)``);
+    the masks stay as given."""
+    if "graphone_banks" not in model:
+        return banks
+    values = model["graphone_banks"]
+    return {t: PrototypeBank(values[t], banks[t].mask) for t in banks}
 
 
 @dataclass
@@ -157,6 +185,17 @@ class MultiTaskSystem:
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Copy a full torch state (see ``interop.from_flax``) in."""
         self.model.load_state_dict(state, strict=True)
+
+    def attach_graphone(self, graphone: GraphONE,
+                        trainable_banks: Optional[Banks] = None) -> None:
+        """Register the GraphONE stages as ``graphone`` and, for
+        ``freeze=False``, copies of the bank values as trainable
+        ``graphone_banks.<task>`` parameters."""
+        self.model["graphone"] = graphone
+        if trainable_banks is not None:
+            self.model["graphone_banks"] = nn.ParameterDict({
+                t: nn.Parameter(b.values.detach().clone())
+                for t, b in trainable_banks.items()})
 
     # ---------------- forward pieces ----------------
     def expand_x(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -337,15 +376,16 @@ class MultiTaskSystem:
 
         return loss_fn
 
-    def _make_inner_step(self, optimizer: Adam, active: Tuple[str, ...]):
-        loss_fn = self._make_phase1_loss_fn(active)
+    def _make_inner_step(self, optimizer: Adam,
+                         loss_fn: Callable[..., Tuple[torch.Tensor, Logs]]):
+        """One optimizer step on ``loss_fn(*args)``:
+        ``inner(opt_state, args, log_norms) -> logs``."""
 
-        def inner_step(opt_state: AdamState, batches: Dict[str, Batch],
-                       generator: Optional[torch.Generator],
+        def inner_step(opt_state: AdamState, args: tuple,
                        log_norms: bool) -> Logs:
             params = self.params()
             names = optimizer.trainable_names(params)
-            total, logs = loss_fn(batches, generator)
+            total, logs = loss_fn(*args)
             # gradients of the trainable leaves only (torch grad=None for
             # the rest); a trainable leaf outside the graph gets zeros, as
             # in JAX
@@ -361,18 +401,37 @@ class MultiTaskSystem:
 
         return inner_step
 
+    @staticmethod
+    def _multi(inner, opt_state: AdamState, arg_list: Sequence[tuple],
+               log_norms) -> Logs:
+        """Sequential steps over ``arg_list``; logs stacked on a leading K
+        axis. ``log_norms="last"`` computes the norms on the last step only
+        (unstacked scalars)."""
+        last_only = log_norms == "last"
+        all_logs: List[Logs] = []
+        for k, args in enumerate(arg_list):
+            norms = (k == len(arg_list) - 1) if last_only else log_norms
+            all_logs.append(inner(opt_state, args, norms))
+        logs = {key: torch.stack([l[key] for l in all_logs])
+                for key in all_logs[0]}
+        if last_only:
+            logs.update({k: v for k, v in all_logs[-1].items()
+                         if k not in all_logs[0]})
+        return logs
+
     def make_train_step(self, optimizer: Adam, active: Tuple[str, ...],
                         log_norms: bool = True):
         """One step over the active tasks:
         ``step(opt_state, batches, generator, lr) -> logs``. Parameters and
         moments update in place; logs are device scalars (no host sync).
         ``log_norms=False`` drops the global grad and param norms."""
-        inner = self._make_inner_step(optimizer, active)
+        inner = self._make_inner_step(optimizer,
+                                      self._make_phase1_loss_fn(active))
 
         def step(opt_state: AdamState, batches: Dict[str, Batch],
                  generator: Optional[torch.Generator], lr: float) -> Logs:
             opt_state.hyperparams["learning_rate"] = lr
-            return inner(opt_state, batches, generator, log_norms)
+            return inner(opt_state, (batches, generator), log_norms)
 
         return step
 
@@ -382,24 +441,159 @@ class MultiTaskSystem:
         ``multi_step(opt_state, batch_list, generator, lr) -> logs`` with a
         leading K axis on each log. ``log_norms="last"`` computes the norms
         on the last step only (unstacked scalars)."""
-        inner = self._make_inner_step(optimizer, active)
-        last_only = log_norms == "last"
+        inner = self._make_inner_step(optimizer,
+                                      self._make_phase1_loss_fn(active))
 
         def multi_step(opt_state: AdamState,
                        batch_list: Sequence[Dict[str, Batch]],
                        generator: Optional[torch.Generator],
                        lr: float) -> Logs:
             opt_state.hyperparams["learning_rate"] = lr
-            all_logs: List[Logs] = []
-            for k in range(steps_per_call):
-                norms = (k == steps_per_call - 1) if last_only else log_norms
-                all_logs.append(inner(opt_state, batch_list[k], generator,
-                                      norms))
-            logs = {key: torch.stack([l[key] for l in all_logs])
-                    for key in all_logs[0]}
-            if last_only:
-                logs.update({k: v for k, v in all_logs[-1].items()
-                             if k not in all_logs[0]})
-            return logs
+            return self._multi(inner, opt_state,
+                               [(batch_list[k], generator)
+                                for k in range(steps_per_call)], log_norms)
+
+        return multi_step
+
+    # ---------------- eval forward (phase 1 & 2) ----------------
+    def _interacted(self, graphone: GraphONE, aux: Sequence[str],
+                    feat: torch.Tensor, banks: Banks, train: bool,
+                    generator: Optional[torch.Generator]
+                    ) -> Dict[str, torch.Tensor]:
+        """The aux heads' projections of the backbone features, detached
+        (reference main_egopack.py:53), interacted with the prototype banks;
+        returned as ``(B, N, F)`` per aux task."""
+        flat = feat.reshape(-1, feat.shape[-1])
+        with torch.no_grad():
+            secondary = {t: self.tasks[t].head.forward_features(
+                flat, train, generator) for t in aux}
+        inter, _ = graphone.interact(secondary,
+                                     _effective_banks(self.model, banks))
+        return {t: v.reshape(feat.shape[0], feat.shape[1], -1)
+                for t, v in inter.items()}
+
+    def make_eval_step(self, name: str, aux: Tuple[str, ...] = (),
+                       graphone: Optional[GraphONE] = None,
+                       late_fusion: bool = True):
+        """Eval forward for one task, with the optional GraphONE interaction
+        (reference validate.py:33-60):
+        ``step(batch, banks) -> (logits, per_elem, post_feat, node_mask)``.
+        ``post_feat`` is the task projection, stacked with the interacted
+        aux features when GraphONE runs (validate.py:43,52-56)."""
+        head = self.tasks[name].head
+
+        @torch.no_grad()
+        def step(batch: Batch, banks: Optional[Banks] = None):
+            feat, node_mask = self.backbone_features(batch, name, False, None)
+            tfeat = head.forward_features(feat)
+            pool_mask = node_mask if name == "oscc" else None
+            aux_feats, post_feat = None, tfeat
+            if graphone is not None and aux:
+                aux_feats = self._interacted(graphone, aux, feat, banks,
+                                             False, None)
+                b, n = feat.shape[:2]
+                post_feat = torch.stack(
+                    [tfeat.reshape(b * n, -1)]
+                    + [v.reshape(b * n, -1) for v in aux_feats.values()],
+                    dim=1).reshape(b, n, -1)
+            if late_fusion or aux_feats is None:
+                logits = head.forward_logits(tfeat, pool_mask,
+                                             aux_features=aux_feats)
+            else:
+                # early fusion: max over the stacked primary and aux
+                # features (validate.py:49)
+                mixed = torch.stack([tfeat, *aux_feats.values()],
+                                    dim=1).amax(1)
+                logits = head.forward_logits(mixed, pool_mask)
+            per_elem = _phase2_task_loss(head, logits, batch["y"])
+            return logits, per_elem, post_feat, node_mask
+
+        return step
+
+    # ---------------- phase 2: EgoPack step ----------------
+    def make_egopack_loss_fn(self, active: Tuple[str, ...],
+                             graphone: GraphONE,
+                             backprop_temporal_graph: bool = True,
+                             temporal_graph_train_mode: bool = False,
+                             late_fusion: bool = True):
+        """The phase-2 loss: ``loss_fn(banks, batches, generator) ->
+        (loss, logs)``."""
+        all_tasks = tuple(self.tasks)
+
+        def task_loss(banks: Banks, name: str, batch: Batch,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+            feat, node_mask = self.backbone_features(
+                batch, name, temporal_graph_train_mode, generator)
+            if not backprop_temporal_graph:
+                feat = feat.detach()
+            head = self.tasks[name].head
+            tfeat = head.forward_features(feat, True, generator)
+            # without late fusion the JAX step computes the interaction and
+            # drops it; nothing of it reaches the loss, so it is skipped
+            aux_feats = None
+            if late_fusion:
+                # interact only with tasks that have prototype banks
+                others = tuple(t for t in all_tasks
+                               if t != name and t in graphone.task_labels)
+                aux_feats = self._interacted(graphone, others, feat, banks,
+                                             True, generator)
+            logits = head.forward_logits(
+                tfeat, node_mask if name == "oscc" else None, True,
+                generator, aux_features=aux_feats)
+            per_elem = _phase2_task_loss(head, logits, batch["y"])
+            mask = batch["valid"] if per_elem.ndim == 1 else node_mask
+            return masked_mean(per_elem, mask)
+
+        def loss_fn(banks: Banks, batches: Dict[str, Batch],
+                    generator: Optional[torch.Generator]):
+            total, logs = 0.0, {}
+            for name in active:
+                loss = task_loss(banks, name, batches[name], generator)
+                logs[f"{name}_loss"] = loss
+                total = total + self.tasks[name].weight * loss
+            return total, logs
+
+        return loss_fn
+
+    def make_egopack_train_step(self, optimizer: Adam,
+                                active: Tuple[str, ...], graphone: GraphONE,
+                                backprop_temporal_graph: bool = True,
+                                temporal_graph_train_mode: bool = False,
+                                late_fusion: bool = True, log_norms=True):
+        """One EgoPack step:
+        ``step(opt_state, banks, batches, generator, lr) -> logs``, in
+        place like the phase-1 step."""
+        inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
+            active, graphone, backprop_temporal_graph,
+            temporal_graph_train_mode, late_fusion))
+
+        def step(opt_state: AdamState, banks: Banks,
+                 batches: Dict[str, Batch],
+                 generator: Optional[torch.Generator], lr: float) -> Logs:
+            opt_state.hyperparams["learning_rate"] = lr
+            return inner(opt_state, (banks, batches, generator), log_norms)
+
+        return step
+
+    def make_egopack_train_step_multi(self, optimizer: Adam,
+                                      active: Tuple[str, ...],
+                                      graphone: GraphONE, steps_per_call: int,
+                                      log_norms=True, **kw):
+        """``steps_per_call`` EgoPack steps:
+        ``multi_step(opt_state, banks, batch_list, generator, lr) -> logs``
+        (same stacking and ``log_norms="last"`` as
+        ``make_train_step_multi``); ``kw`` as for
+        ``make_egopack_train_step``."""
+        inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
+            active, graphone, **kw))
+
+        def multi_step(opt_state: AdamState, banks: Banks,
+                       batch_list: Sequence[Dict[str, Batch]],
+                       generator: Optional[torch.Generator],
+                       lr: float) -> Logs:
+            opt_state.hyperparams["learning_rate"] = lr
+            return self._multi(inner, opt_state,
+                               [(banks, batch_list[k], generator)
+                                for k in range(steps_per_call)], log_norms)
 
         return multi_step

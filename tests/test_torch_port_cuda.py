@@ -1,4 +1,5 @@
-"""The fused-Adam CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels (fused Adam, cosine k-NN) against their plain
+PyTorch versions, on the card.
 
 Skips on a host without CUDA: the kernel has no CPU mode. This file imports
 only torch and the port, so it runs where JAX is not installed:
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from egopack_torch.ops import fused_adam as tfa
+from egopack_torch.ops import knn_topk as tkt
 
 
 @pytest.mark.cuda
@@ -45,3 +47,33 @@ def test_kernel_matches_plain_version_on_the_card(moments):
         torch.testing.assert_close(a, b, rtol=ulp if a.dtype == m_dtype
                                    else 2.0 ** -23, atol=0)
     assert all(torch.isfinite(p).all() for p in kern[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,p,f,valid,k", [
+    (3, 64, 2048, 1024, 1900, 8),   # the phase-2 step's shape
+    (3, 64, 1999, 1024, 0.8, 8),    # P not a multiple of the 64-row tile
+    (3, 64, 256, 1024, 5, 8),       # fewer than k valid rows
+    (2, 37, 130, 30, 0.5, 32),      # ragged M and F (no float4 loads), k=32
+])
+def test_knn_kernel_matches_plain_version_on_the_card(t, m, p, f, valid, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(p)
+    feats = torch.randn((t, m, f), device="cuda", generator=gen)
+    bank = torch.randn((t, p, f), device="cuda", generator=gen)
+    if isinstance(valid, int):
+        mask = (torch.arange(p, device="cuda") < valid).expand(t, p)
+    else:
+        mask = torch.rand((t, p), device="cuda", generator=gen) < valid
+    bank[~mask] = 0.0  # padded rows are zeros: 0/0 if they were read
+    launches = tkt.cosine_knn.launches
+    idx, dist = tkt.cosine_knn(feats, bank, mask, k)
+    torch.cuda.synchronize()
+    assert tkt.cosine_knn.launches - launches == 1
+    assert idx.dtype == torch.int32 and idx.shape == (t, m, k)
+    ref_idx, ref_dist = tkt.cosine_knn_reference(feats, bank, mask, k)
+    # distances within 1e-5; indices equal but for near-ties
+    tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, atol=1e-5)
+    assert not torch.isnan(dist).any()

@@ -61,3 +61,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         entry.build_mtl_step(2, 4, 8)
     assert entry.build_system(8, 8, 4, device="cpu").device.type == "cpu"
 
+
+
+def test_phase2_entry_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.build_egopack_step(2, 4, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.build_system(8, 8, 4, phase2=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.random_banks(128, 100, 8)
+    step = entry.build_egopack_step(2, 4, 8, p_pad=128, fill=100,
+                                    device="cpu")
+    assert step.system.device.type == "cpu"
+    assert all(b.values.device.type == "cpu" for b in step.banks.values())
