@@ -94,6 +94,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
+def gpu_clocks() -> str:
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads
+    them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
 def hbm_bytes_per_s(name: str) -> float:
     """Peak device-memory rate by SKU (NVIDIA data sheets)."""
     if "H200" in name:
@@ -117,6 +127,18 @@ def fp32_peak(name: str) -> float:
             return 60e12
         return 67e12  # SXM
     raise RuntimeError(f"no float32 peak on record for {name!r}")
+
+
+def tf32_peak(name: str) -> float:
+    """TF32 FLOP/s of the tensor cores, dense, by SKU (NVIDIA data
+    sheets)."""
+    if "H100" in name:
+        if "PCIe" in name:
+            return 378e12
+        if "NVL" in name:
+            return 418e12
+        return 495e12  # SXM
+    raise RuntimeError(f"no TF32 peak on record for {name!r}")
 
 
 def time_ms(fn, iters: int) -> float:
@@ -568,15 +590,19 @@ def phase_small_egopack_vs_cpu(dev) -> None:
 
 
 def knn_bound(feats, mask, k: int, card: str):
-    """Least time for the kNN on these inputs: the products with the valid
-    bank rows (2*M*F flops each) over the float32 peak, against each valid
-    bank row, the features and the mask read once and the (idx, dist)
-    output written once over the memory rate."""
+    """Least time for the kNN on these inputs, whatever kernel computes it:
+    the larger of the bytes (each valid bank row, the features and the mask
+    read once, the (idx, dist) output written once) over the memory rate,
+    and the products with the valid bank rows (2*M*F flops each) as
+    float32-accurate products at the tensor cores' TF32 peak. One such
+    product costs three TF32 products (3xTF32: hi and lo halves of each
+    operand), so the flops count three times: 165 TFLOP/s of such products
+    on the H100 SXM, against 67 on its CUDA cores (``fp32_peak``)."""
     t, m, f = feats.shape
     valid = int(mask.sum())
     flops = 2 * m * f * valid
     nbytes = 4 * (valid * f + t * m * f) + mask.numel() + 8 * t * m * k
-    ops_ms = flops / fp32_peak(card) * 1e3
+    ops_ms = 3 * flops / tf32_peak(card) * 1e3
     bytes_ms = nbytes / hbm_bytes_per_s(card) * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes"), flops, nbytes
@@ -585,7 +611,8 @@ def knn_bound(feats, mask, k: int, card: str):
 def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
     """Kernel, plain version and library call on the main path's kNN inputs
     and on a full-taxonomy bank (P=55,040), each timed twice in turns by
-    the profiler's device time."""
+    the profiler's device time, with the card's clock, power and
+    temperature read before and after each window."""
     gen = torch.Generator(device=dev).manual_seed(9)
     shapes = {"main": main_inputs,
               "full": knn_inputs(gen, 3, 64, 55040, HIDDEN, 50000)}
@@ -604,10 +631,13 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
                                                           K),
                 "library": lambda: library(feats, bank, mask)}
         runs = {a: [] for a in arms}
+        clocks = {a: [] for a in arms}
         order = ("plain", "kernel", "library")
         for seq in (order, order[::-1]):
             for a in seq:
+                before = gpu_clocks()
                 runs[a].append(device_ms(arms[a], 20))
+                clocks[a].append([before, gpu_clocks()])
         ms = {a: sum(v) / len(v) for a, v in runs.items()}
         kernel_parts = {}
         device_ms(arms["kernel"], 20, kernel_parts)
@@ -621,6 +651,9 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
             f"1-bmm {ms['library']!r}; bound {bound!r} by {by} ({flops} "
             f"flop, {nbytes} B); runs {json.dumps(runs)}; the kernel's "
             f"passes {json.dumps(passes)}; on {card}")
+        log(f"numbers: cosine_knn P={bank.shape[1]} SM clock, power draw, "
+            f"temperature before and after each window of runs: "
+            f"{json.dumps(clocks)}")
         out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                     "library_ms": ms["library"], "bound_ms": bound,
                     "bound_by": by}

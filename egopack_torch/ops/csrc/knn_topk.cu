@@ -16,44 +16,91 @@
 // Shapes: features (T, M, F) f32, bank (T, P, F) f32, mask (T, P) bool ->
 // idx (T, M, k) int32, dist (T, M, k) f32; 1 <= k <= 32 and k <= P.
 //
-// Bound: operations. 2*T*M*P*F flops against 4*T*(P*F + M*F) + T*P bytes,
-// about 31 flops a byte at the phase-2 shape (T=3, M=64, F=1024), above the
-// card's float32 ridge (67 TFLOP/s over 3.35 TB/s = 20). The products run in
-// float32 on the CUDA cores, with FMA, and no tensor cores or TF32, so the
-// result stays within float32 rounding of the plain version.
+// Bound: bytes. The products must be float32-accurate, and on the tensor
+// cores that costs three TF32 products each (3xTF32, below), so the least
+// time is the larger of 4*T*(P*F + M*F) + T*P bytes at 3.35 TB/s and
+// 3 * 2*T*M*P*F flops at 495 TFLOP/s. At the phase-2 shape (T=3, M=64,
+// F=1024) that is 2*M/4 = 32 flops a byte against 3 * 495/3.35 = 443 at the
+// ridge: the bank's bytes.
+//
+// 3xTF32: every operand x is split into hi = x rounded to TF32 (10 explicit
+// mantissa bits) and lo = x - hi, which the tensor cores read to 10 bits
+// as well, and a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the
+// small terms first, in float32 accumulators; a_lo.b_lo (about 2^-22
+// relative) is dropped. Each product is then within about 2^-21 of a.b
+// relative to |a||b|, so over F=1024 terms the cosine is off by at most
+// about 2^-21 (|f.b| <= |f||b|) plus the accumulators' rounding, below
+// 1e-5, the distance tolerance held against the plain version. The norms
+// are exact float32 sums of squares on the CUDA cores.
 //
 // Design:
-// - Pass 1, grid (splits, M/32, T), 128 threads. A block holds 32 feature
-//   rows and walks its share of the bank in tiles of 64 rows: a register-
-//   tiled SIMT product (each thread 4x4 outputs, operands staged in shared
-//   memory in chunks of 32 along F, the next chunk's loads in flight while
-//   the current one is multiplied), the rows' norms taken from the same
-//   loads, then the 32x64 distance tile goes to shared memory and each warp
-//   merges 8 rows of it into running top-k lists (kept in shared memory;
-//   while a row is merged, lane j holds its j-th best). A tile whose candidates beat the k-th best in
-//   numbers is bitonic-sorted across the warp and merged with the list in
-//   one network; a few survivors are inserted one at a time by ballot and
-//   shuffle. The (M, P) matrix never reaches device memory. Each block
-//   writes its k best per row to (T, M, splits, k) scratch.
+// - Pass 1, grid (splits, ceil(M/64), T), 8 warps. A block holds 64 feature
+//   rows (all of the phase-2 step's M) and walks its share of the bank in
+//   tiles of 64 rows, so each bank tile is read once per task. The operands
+//   arrive in chunks of 32 along F through a ring of 3 stages in dynamic
+//   shared memory, filled by cp.async (16-byte copies, zero-filled outside
+//   (M, P, F); 4-byte copies where rows are not 16-byte aligned) with two
+//   chunks in flight while one is multiplied. A stage holds the 64 feature
+//   rows, then the tile's 64 bank rows, row-major in rows of 32+4 floats
+//   (16-byte aligned rows, conflict-free fragment loads). The ring
+//   runs on across tiles, so the next tile's first chunks load while this
+//   tile's candidates are selected.
+//   Each warp owns a 16x32 piece of the 64x64 product as four m16n8
+//   accumulators of mma.sync m16n8k8 TF32 on the tensor cores, fed from
+//   shared memory by plain loads (WMMA's loads compiled to generic ones
+//   there, and its m16n16k8 to twice as many m16n8k4). Two threads a row sum
+//   the rows' squares from the same stages (the feature rows on a block's
+//   first tile only). The product tile goes to shared memory, and each
+//   warp merges 8 rows of it into running top-k lists (kept in shared
+//   memory; while a row is merged, lane j holds its j-th best). A tile
+//   whose candidates beat the k-th best in numbers is bitonic-sorted across
+//   the warp and merged with the list in one network; a few survivors are
+//   inserted one at a time by ballot and shuffle. The (M, P) matrix never
+//   reaches device memory. Each block writes its k best per row to
+//   (T, M, splits, k) scratch.
 // - Pass 2, one warp per (t, m) row, merges the splits' lists into the
 //   final k the same way, 32 candidates at a time.
 // Splitting P across blocks keeps the card busy: at the phase-2 shape
-// (T, M/32) alone gives 6 blocks for 132 SMs.
+// (T, M/64) alone gives 3 blocks for 132 SMs.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 
 namespace {
 
 constexpr int kMaxK = 32;    // one list entry per lane; must match knn_topk.py
-constexpr int kRows = 32;    // feature rows per block
+constexpr int kRows = 64;    // feature rows per block
 constexpr int kCols = 64;    // bank rows per tile
-constexpr int kChunk = 32;   // F per staged chunk
-constexpr int kThreads = 128;
+constexpr int kChunk = 32;   // F per ring stage
+constexpr int kStages = 3;   // ring depth: kStages - 1 chunks in flight
+constexpr int kStride = kChunk + 4;  // floats per staged row
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMergeThreads = 128;
+constexpr int kStageFloats = (kRows + kCols) * kStride;
+constexpr int kCopies = (kRows + kCols) * (kChunk / 4) / kThreads;
+constexpr int kDsStride = kCols + 4;  // product tile row, 16-byte aligned
+constexpr int kWarpCols = kRows * kCols / kWarps / 16;  // a warp: 16 rows
+constexpr int kWarpTiles = kWarpCols / 8;  // m16n8 accumulators a warp
 constexpr int kFewSurvivors = 8;  // up to this many: insert one at a time
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = INT_MAX;    // index of an empty or out-of-range slot
+// dynamic shared memory: the ring, the product tile, the lists, the norms;
+// every part starts at a multiple of 128 bytes
+constexpr int kSmemBytes =
+    4 * (kStages * kStageFloats + kRows * kDsStride + 2 * kRows * 32 +
+         kRows + kCols);
+
+static_assert(kCols == 32 || kCols == 64, "one or two candidates a lane");
+static_assert(kCols % kWarpCols == 0, "whole warp tiles across");
+static_assert(kRows % kWarps == 0, "each warp merges whole rows");
+static_assert(kCopies * kThreads == (kRows + kCols) * (kChunk / 4),
+              "the threads copy a stage in whole 16-byte pieces");
+static_assert(2 * (kRows + kCols) <= kThreads, "two threads a row's norm");
+static_assert(kStageFloats * 4 % 128 == 0 && kRows * kDsStride * 4 % 128 == 0,
+              "128-byte aligned parts");
 
 __device__ __forceinline__ bool before(float ad, int ai, float bd, int bi) {
   return ad < bd || (ad == bd && ai < bi);
@@ -145,41 +192,76 @@ __device__ __forceinline__ void take(float& ld, int& li, float cd, int ci,
   merge32(ld, li, cd, ci, lane);
 }
 
-// Four consecutive floats of row `row` from column `col`, zero outside
-// (rows, cols). `vec`: the rows are 16-byte aligned and cols % 4 == 0.
-__device__ __forceinline__ float4 load4(const float* base, int row, int rows,
-                                        int col, int cols, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= rows) return v;
-  const float* p = base + static_cast<long long>(row) * cols + col;
-  if (vec) {
-    if (col < cols) v = *reinterpret_cast<const float4*>(p);
-    return v;
-  }
-  if (col < cols) v.x = p[0];
-  if (col + 1 < cols) v.y = p[1];
-  if (col + 2 < cols) v.z = p[2];
-  if (col + 3 < cols) v.w = p[3];
-  return v;
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 bytes (or 4), of which the first `bytes` come from `src`
+// and the rest are zeros; `bytes` 0 reads nothing.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_address(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   shared_address(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float sumsq(float4 v) {
   return v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The 3xTF32 split of x: hi is x rounded to TF32 (to nearest, ties away
+// from zero, as cvt.rna: half a TF32 unit added to the magnitude, the 13
+// low bits cleared), lo = x - hi, exact in float32. lo goes to the tensor
+// cores as it is: they read a TF32 operand's top 19 bits, so lo loses at
+// most 2^-11 of itself, 2^-22 of x. Three integer and float operations,
+// where cvt.rna twice takes seven (the compiler guards inf and NaN, which
+// the features and the bank do not hold).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                          unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b on the tensor cores: a 16x8 (row-major), b 8x8 (column-major)
+// TF32, d 16x8 f32, in the fragment layouts of mma.sync m16n8k8.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
     knn_partial(const float* __restrict__ feats, const float* __restrict__ bank,
                 const unsigned char* __restrict__ mask, int M, int P, int F,
-                int k, int tiles_per_split, float* __restrict__ part_d,
-                int* __restrict__ part_i) {
-  __shared__ __align__(16) float As[kChunk][kRows + 4];
-  __shared__ __align__(16) float Bs[kChunk][kCols + 4];
-  __shared__ float Ds[kRows][kCols + 1];
-  __shared__ float inv_nf[kRows];
-  __shared__ float inv_nb[kCols];
-  // running top-k of each row, entry j of row r at [r][j] (j < k valid)
-  __shared__ float Ld[kRows][32];
-  __shared__ int Li[kRows][32];
+                int k, int tiles_per_split, bool vec,
+                float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* const ring = reinterpret_cast<float*>(smem);
+  float* const Ds = ring + kStages * kStageFloats;  // [kRows][kDsStride]
+  // running top-k of each row, entry j of row r at [r * 32 + j] (j < k valid)
+  float* const Ld = Ds + kRows * kDsStride;
+  int* const Li = reinterpret_cast<int*>(Ld + kRows * 32);
+  float* const inv_nf = reinterpret_cast<float*>(Li + kRows * 32);
+  float* const inv_nb = inv_nf + kRows;
 
   const int t = blockIdx.z;
   const int m0 = blockIdx.y * kRows;
@@ -191,121 +273,163 @@ __global__ void __launch_bounds__(kThreads)
   const float* f = feats + static_cast<long long>(t) * M * F;
   const float* b = bank + static_cast<long long>(t) * P * F;
   const unsigned char* valid_row = mask + static_cast<long long>(t) * P;
-  const bool vec = (F % 4) == 0;
+  const int rows_here = min(kRows, M - m0);
+  const int row_lo = warp * (kRows / kWarps);
+  const int row_hi = min(row_lo + kRows / kWarps, rows_here);
 
-  // product layout: thread (ty, tx) owns rows ty*4.. and columns tx*4..; a
-  // warp covers 4 ty x 8 tx, so its operand reads are two broadcasts
-  const int ty = (warp >> 1) * 4 + (lane >> 3);
-  const int tx = (warp & 1) * 8 + (lane & 7);
-  // load layout: A chunk 32 rows x 32 (two float4 each), B chunk 64 x 32
-  // (four float4 each); the 4 lanes of a row are neighbours
-  const int lrow = tid >> 2;
-  const int lcol = (tid & 3) * 4;
+  // product layout: the warp's 16 x kWarpCols piece of the tile; in it,
+  // lane holds rows lr and lr + 8, columns 2 lc and 2 lc + 1 of each m16n8
+  // tile
+  const int wrow = warp / (kCols / kWarpCols) * 16;
+  const int wcol = warp % (kCols / kWarpCols) * kWarpCols;
+  const int lr = lane >> 2;
+  const int lc = lane & 3;
+  // norm layout: threads 2r and 2r+1 sum halves of stage row r
+  const int nrow = tid >> 1;
+  const int nhalf = (tid & 1) * (kChunk / 2);
 
-  for (int r = warp * (kRows / 4); r < (warp + 1) * (kRows / 4); ++r) {
-    Ld[r][lane] = __int_as_float(0x7f800000);  // +inf
-    Li[r][lane] = kNone;
+  for (int r = warp * (kRows / kWarps); r < (warp + 1) * (kRows / kWarps);
+       ++r) {
+    Ld[r * 32 + lane] = __int_as_float(0x7f800000);  // +inf
+    Li[r * 32 + lane] = kNone;
   }
 
   const int n_tiles = (P + kCols - 1) / kCols;
   const int tile_lo = split * tiles_per_split;
   const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+  const int n_chunks = (F + kChunk - 1) / kChunk;
+  const int total = (tile_hi - tile_lo) * n_chunks;
+
+  // chunk g of the block's walk (tile tile_lo + g / n_chunks, columns from
+  // (g % n_chunks) * kChunk) into ring stage g % kStages
+  auto issue = [&](int g) {
+    float* dst = ring + (g % kStages) * kStageFloats;
+    const int p0 = (tile_lo + g / n_chunks) * kCols;
+    const int c0 = (g % n_chunks) * kChunk;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int u = tid + i * kThreads;
+      const int row = u / (kChunk / 4);
+      const int q = (u % (kChunk / 4)) * 4;
+      const bool is_a = row < kRows;
+      const int grow = is_a ? m0 + row : p0 + row - kRows;
+      const bool in = grow < (is_a ? M : P);
+      const float* src =
+          (is_a ? f : b) + (in ? static_cast<long long>(grow) * F : 0) + c0 +
+          q;
+      float* d = dst + row * kStride + q;
+      if (vec) {
+        const bool ok = in && c0 + q < F;
+        copy16(d, ok ? src : f, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = in && c0 + q + e < F;
+          copy4(d + e, ok ? src + e : f, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // prologue: kStages - 1 chunks in flight; a group is committed for every
+  // chunk index, empty past the end, so the waits below count alike for
+  // every block
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) issue(s);
+    commit_copies();
+  }
+
+  float acc[kWarpTiles][4] = {};
+  float sq = 0.f;
+  int tile = tile_lo, chunk = 0;
+  for (int g = 0; g < total; ++g) {
+    wait_copies<kStages - 2>();  // chunk g has landed, for this thread
+    // ... and for every thread; and every warp is done with chunk g - 1,
+    // whose stage the next issue refills
+    __syncthreads();
+    if (g + kStages - 1 < total) issue(g + kStages - 1);
+    commit_copies();
+
+    const float* st = ring + (g % kStages) * kStageFloats;
+    const float* sa = st + (wrow + lr) * kStride + lc;
+    const float* sb = st + (kRows + wcol + lr) * kStride + lc;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 8) {
+      unsigned a_hi[4], a_lo[4];
+      split_tf32(sa[kk], a_hi[0], a_lo[0]);
+      split_tf32(sa[8 * kStride + kk], a_hi[1], a_lo[1]);
+      split_tf32(sa[kk + 4], a_hi[2], a_lo[2]);
+      split_tf32(sa[8 * kStride + kk + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int j = 0; j < kWarpTiles; ++j) {
+        unsigned b_hi0, b_lo0, b_hi1, b_lo1;
+        split_tf32(sb[j * 8 * kStride + kk], b_hi0, b_lo0);
+        split_tf32(sb[j * 8 * kStride + kk + 4], b_hi1, b_lo1);
+        mma_tf32(acc[j], a_lo, b_hi0, b_hi1);
+        mma_tf32(acc[j], a_hi, b_lo0, b_lo1);
+        mma_tf32(acc[j], a_hi, b_hi0, b_hi1);
+      }
+    }
+    // the feature rows are the same on every tile: their norms once
+    const bool norm_row =
+        nrow < kRows + kCols && (nrow >= kRows || tile == tile_lo);
+    if (norm_row) {
+      const float4* q =
+          reinterpret_cast<const float4*>(st + nrow * kStride + nhalf);
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) sq += sumsq(q[j]);
+    }
+    if (++chunk < n_chunks) continue;
+
+    // the tile's products are done: norms, product tile, selection
+    sq += __shfl_xor_sync(kFull, sq, 1);
+    if (norm_row && nhalf == 0) {
+      if (nrow < kRows) {
+        inv_nf[nrow] = 1.0f / sqrtf(sq);
+      } else {
+        inv_nb[nrow - kRows] = 1.0f / sqrtf(sq);
+      }
+    }
+    sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWarpTiles; ++j) {
+      float* d = Ds + (wrow + lr) * kDsStride + wcol + j * 8 + 2 * lc;
+      *reinterpret_cast<float2*>(d) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(d + 8 * kDsStride) =
+          make_float2(acc[j][2], acc[j][3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    }
+    __syncthreads();
     const int p0 = tile * kCols;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float sq_a = 0.f, sq_b0 = 0.f, sq_b1 = 0.f;
-
-    // registers carry the next chunk while the current one is multiplied,
-    // so its loads overlap the products
-    float4 a[2], b0[2], b1[2];
-    auto fetch = [&](int c0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = c0 + lcol + 16 * h;
-        a[h] = load4(f, m0 + lrow, M, col, F, vec);
-        b0[h] = load4(b, p0 + lrow, P, col, F, vec);
-        b1[h] = load4(b, p0 + lrow + 32, P, col, F, vec);
-      }
-    };
-    fetch(0);
-    for (int c0 = 0; c0 < F; c0 += kChunk) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lcol + 16 * h;
-        sq_a += sumsq(a[h]);
-        sq_b0 += sumsq(b0[h]);
-        sq_b1 += sumsq(b1[h]);
-        As[c + 0][lrow] = a[h].x;
-        As[c + 1][lrow] = a[h].y;
-        As[c + 2][lrow] = a[h].z;
-        As[c + 3][lrow] = a[h].w;
-        Bs[c + 0][lrow] = b0[h].x;
-        Bs[c + 1][lrow] = b0[h].y;
-        Bs[c + 2][lrow] = b0[h].z;
-        Bs[c + 3][lrow] = b0[h].w;
-        Bs[c + 0][lrow + 32] = b1[h].x;
-        Bs[c + 1][lrow + 32] = b1[h].y;
-        Bs[c + 2][lrow + 32] = b1[h].z;
-        Bs[c + 3][lrow + 32] = b1[h].w;
-      }
-      __syncthreads();
-      if (c0 + kChunk < F) fetch(c0 + kChunk);
-#pragma unroll
-      for (int kk = 0; kk < kChunk; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // the 4 lanes that loaded a row hold its partial sums of squares
-    sq_a += __shfl_xor_sync(kFull, sq_a, 1);
-    sq_a += __shfl_xor_sync(kFull, sq_a, 2);
-    sq_b0 += __shfl_xor_sync(kFull, sq_b0, 1);
-    sq_b0 += __shfl_xor_sync(kFull, sq_b0, 2);
-    sq_b1 += __shfl_xor_sync(kFull, sq_b1, 1);
-    sq_b1 += __shfl_xor_sync(kFull, sq_b1, 2);
-    if ((tid & 3) == 0) {
-      inv_nf[lrow] = 1.0f / sqrtf(sq_a);
-      inv_nb[lrow] = 1.0f / sqrtf(sq_b0);
-      inv_nb[lrow + 32] = 1.0f / sqrtf(sq_b1);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j;
-        const int p = p0 + c;
-        // a masked row is +inf whatever its values (a zero pad row is 0/0)
-        const bool ok = p < P && valid_row[p];
-        Ds[r][c] = ok ? 1.0f - acc[i][j] * inv_nf[r] * inv_nb[c]
-                      : __int_as_float(0x7f800000);
-      }
-    }
-    __syncthreads();
-    const bool in0 = p0 + lane < P, in1 = p0 + lane + 32 < P;
+    // a lane's candidates: columns lane and, for 64-row tiles, lane + 32;
+    // a masked row is +inf whatever its values (a zero pad row is 0/0)
+    const bool in0 = p0 + lane < P;
+    const bool in1 = kCols == 64 && p0 + lane + 32 < P;
+    const bool ok0 = in0 && valid_row[p0 + lane];
+    const bool ok1 = in1 && valid_row[p0 + lane + 32];
+    const float nb0 = inv_nb[lane];
+    const float nb1 = kCols == 64 ? inv_nb[lane + 32] : 0.f;
     // one copy of the selection code, not one per row: the lists live in
     // shared memory
 #pragma unroll 1
-    for (int row = warp * (kRows / 4); row < (warp + 1) * (kRows / 4);
-         ++row) {
-      float ld = Ld[row][lane];
-      int li = Li[row][lane];
-      float c0 = in0 ? Ds[row][lane] : __int_as_float(0x7f800000);
-      float c1 = in1 ? Ds[row][lane + 32] : __int_as_float(0x7f800000);
-      int i0 = in0 ? p0 + lane : kNone, i1 = in1 ? p0 + lane + 32 : kNone;
+    for (int row = row_lo; row < row_hi; ++row) {
+      float ld = Ld[row * 32 + lane];
+      int li = Li[row * 32 + lane];
+      const float nf = inv_nf[row];
+      float c0 = ok0 ? 1.0f - Ds[row * kDsStride + lane] * nf * nb0
+                     : __int_as_float(0x7f800000);
+      int i0 = in0 ? p0 + lane : kNone;
+      if (kCols == 32) {
+        take(ld, li, c0, i0, k, lane);
+        Ld[row * 32 + lane] = ld;
+        Li[row * 32 + lane] = li;
+        continue;
+      }
+      float c1 = ok1 ? 1.0f - Ds[row * kDsStride + lane + 32] * nf * nb1
+                     : __int_as_float(0x7f800000);
+      int i1 = in1 ? p0 + lane + 32 : kNone;
       const float wd = __shfl_sync(kFull, ld, k - 1);
       const int wi = __shfl_sync(kFull, li, k - 1);
       const int n = __popc(__ballot_sync(kFull, before(c0, i0, wd, wi))) +
@@ -324,30 +448,33 @@ __global__ void __launch_bounds__(kThreads)
         offer(ld, li, c0, i0, in0, k, lane);
         offer(ld, li, c1, i1, in1, k, lane);
       }
-      Ld[row][lane] = ld;
-      Li[row][lane] = li;
+      Ld[row * 32 + lane] = ld;
+      Li[row * 32 + lane] = li;
     }
-    __syncthreads();
+    // Ds, inv_nb and the lists are next written after the next tile's
+    // first __syncthreads, when every warp is done here
+    ++tile;
+    chunk = 0;
   }
 
-  for (int row = warp * (kRows / 4); row < (warp + 1) * (kRows / 4); ++row) {
-    const int m = m0 + row;
-    if (m < M && lane < k) {
+  for (int row = row_lo; row < row_hi; ++row) {
+    if (lane < k) {
       const long long o =
-          ((static_cast<long long>(t) * M + m) * splits + split) * k + lane;
-      part_d[o] = Ld[row][lane];
-      part_i[o] = Li[row][lane];
+          ((static_cast<long long>(t) * M + m0 + row) * splits + split) * k +
+          lane;
+      part_d[o] = Ld[row * 32 + lane];
+      part_i[o] = Li[row * 32 + lane];
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMergeThreads)
     knn_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
               int rows, int splits, int k, int* __restrict__ out_i,
               float* __restrict__ out_d) {
   const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kMergeThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warps leave together
   float ld = __int_as_float(0x7f800000);
   int li = kNone;
@@ -370,7 +497,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // One call = one launch pair on `stream`. part_d / part_i hold
 // T*M*splits*k entries; splits <= ceil(P / 64). Returns the cudaError_t of
-// the launches (0 on success); the caller raises on anything else.
+// the launches (0 on success); the caller raises on anything else, among
+// them a card that cannot give pass 1 its shared memory.
 extern "C" int egopack_cosine_knn(const float* feats, const float* bank,
                                   const unsigned char* mask, int T, int M,
                                   int P, int F, int k, int splits,
@@ -387,15 +515,31 @@ extern "C" int egopack_cosine_knn(const float* feats, const float* bank,
   if ((splits - 1) * tiles_per_split >= n_tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // pass 1 takes more than the default 48 KB of shared memory: opt in once
+  // per device
+  static std::atomic<unsigned long long> opted_in{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if ((opted_in.load() & bit) == 0) {
+    err = cudaFuncSetAttribute(
+        knn_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in.fetch_or(bit);
+  }
+  // 16-byte copies need 16-byte aligned rows
+  const bool vec = F % 4 == 0 && reinterpret_cast<size_t>(feats) % 16 == 0 &&
+                   reinterpret_cast<size_t>(bank) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid1(splits, (M + kRows - 1) / kRows, T);
-  knn_partial<<<grid1, kThreads, 0, s>>>(feats, bank, mask, M, P, F, k,
-                                         tiles_per_split, part_d, part_i);
-  cudaError_t err = cudaGetLastError();
+  knn_partial<<<grid1, kThreads, kSmemBytes, s>>>(
+      feats, bank, mask, M, P, F, k, tiles_per_split, vec, part_d, part_i);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = T * M;
-  const int warps = kThreads / 32;
-  knn_merge<<<(rows + warps - 1) / warps, kThreads, 0, s>>>(
+  const int warps = kMergeThreads / 32;
+  knn_merge<<<(rows + warps - 1) / warps, kMergeThreads, 0, s>>>(
       part_d, part_i, rows, splits, k, out_i, out_d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,9 +30,10 @@ import torch
 from . import cuda_build
 
 MAX_K = 32       # one list entry per lane; must match kMaxK in csrc/knn_topk.cu
-TILE_ROWS = 32   # feature rows per block; must match kRows
+TILE_ROWS = 64   # feature rows per block; must match kRows
 TILE_COLS = 64   # bank rows per tile; must match kCols
-BLOCKS_PER_SM = 4  # pass-1 blocks the P-split aims for, per SM
+THREADS = 256    # pass-1 threads per block (8 warps); must match kThreads
+BLOCKS_PER_SM = 2  # pass-1 blocks the P-split aims for, per SM
 
 
 def cosine_knn_reference(features: torch.Tensor, bank: torch.Tensor,

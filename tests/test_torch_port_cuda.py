@@ -50,19 +50,32 @@ def test_kernel_matches_plain_version_on_the_card(moments):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,m,p,f,valid,k", [
-    (3, 64, 2048, 1024, 1900, 8),   # the phase-2 step's shape
-    (3, 64, 1999, 1024, 0.8, 8),    # P not a multiple of the 64-row tile
-    (3, 64, 256, 1024, 5, 8),       # fewer than k valid rows
-    (2, 37, 130, 30, 0.5, 32),      # ragged M and F (no float4 loads), k=32
+@pytest.mark.parametrize("t,m,p,f,valid,k,rows", [
+    (3, 64, 2048, 1024, 1900, 8, "normal"),  # the phase-2 step's shape
+    (3, 64, 1999, 1024, 0.8, 8, "normal"),   # P not a multiple of the tile
+    (3, 64, 256, 1024, 5, 8, "normal"),      # fewer than k valid rows
+    (2, 37, 130, 30, 0.5, 32, "normal"),     # ragged M and F (no 16-byte
+                                             # copies), k=32
+    (3, 65, 2048, 1024, 1900, 8, "normal"),  # two row blocks, one ragged
+    (3, 64, 55040, 1024, 50000, 8, "normal"),  # the full taxonomy: many
+                                               # tiles a split
+    (3, 64, 2048, 1024, 1900, 8, "scaled"),  # rows scaled over 1e-3..1e3
+    (3, 64, 2048, 1024, 1900, 8, "pairs"),   # near-duplicate row pairs
 ])
-def test_knn_kernel_matches_plain_version_on_the_card(t, m, p, f, valid, k):
+def test_knn_kernel_matches_plain_version_on_the_card(t, m, p, f, valid, k,
+                                                      rows):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(p)
     feats = torch.randn((t, m, f), device="cuda", generator=gen)
     bank = torch.randn((t, p, f), device="cuda", generator=gen)
+    if rows == "scaled":  # the products' hi/lo split at any magnitude
+        bank *= 10.0 ** (6 * torch.rand((t, p, 1), device="cuda",
+                                        generator=gen) - 3)
+    elif rows == "pairs":  # near-ties: rows 2i and 2i+1 differ by 1e-6 noise
+        bank[:, 1::2] = bank[:, 0::2] + 1e-6 * torch.randn(
+            (t, p // 2, f), device="cuda", generator=gen)
     if isinstance(valid, int):
         mask = (torch.arange(p, device="cuda") < valid).expand(t, p)
     else:
@@ -75,5 +88,6 @@ def test_knn_kernel_matches_plain_version_on_the_card(t, m, p, f, valid, k):
     assert idx.dtype == torch.int32 and idx.shape == (t, m, k)
     ref_idx, ref_dist = tkt.cosine_knn_reference(feats, bank, mask, k)
     # distances within 1e-5; indices equal but for near-ties
-    tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, atol=1e-5)
+    swaps = tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, atol=1e-5)
     assert not torch.isnan(dist).any()
+    print(f"near-tie swaps {swaps}")

@@ -3,6 +3,9 @@ version of the kernel in ``ops/knn_topk.py``) against
 ``egopack_tpu.ops.knn.prototype_topk(impl="xla")``: same numpy inputs,
 indices exact, distances within 1e-5."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,13 +175,36 @@ def test_wrapper_checks():
 @pytest.mark.parametrize("t,m", [(1, 1), (3, 64), (3, 8), (2, 300)])
 def test_p_splits_cover_every_tile(t, m, p):
     """Pass 1's P-split (host logic of the wrapper): every split owns at
-    least one 64-row tile and together they cover the bank."""
+    least one tile of ``TILE_COLS`` bank rows and together they cover the
+    bank."""
     for sms in (1, 132):
         s = tkt.num_splits(t, m, p, sms)
         tiles = -(-p // tkt.TILE_COLS)
         per = -(-tiles // s)
         assert 1 <= s <= tiles
         assert (s - 1) * per < tiles <= s * per
+
+
+def _kernel_constants():
+    """The ``constexpr int`` constants of ``csrc/knn_topk.cu`` whose values
+    are arithmetic of numbers and earlier constants."""
+    src = (Path(tkt.__file__).parent / "csrc" / "knn_topk.cu").read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        expr = re.sub(r"\b(k\w+)\b", lambda m: str(consts.get(m[1], m[1])),
+                      expr.replace("/", "//"))
+        if re.fullmatch(r"[\d\s*+/()-]+", expr):
+            consts[name] = eval(expr)  # numbers and operators only
+    return consts
+
+
+@pytest.mark.parametrize("c_name,py_name", [
+    ("kMaxK", "MAX_K"), ("kRows", "TILE_ROWS"), ("kCols", "TILE_COLS"),
+    ("kThreads", "THREADS")])
+def test_wrapper_constants_match_the_kernel_source(c_name, py_name):
+    """The wrapper's tile constants (the P-split, the k limit) are the
+    kernel's: a mismatch would split P into tiles the kernel does not walk."""
+    assert _kernel_constants()[c_name] == getattr(tkt, py_name)
 
 
 def test_near_tie_swaps_accepts_ties_only():
