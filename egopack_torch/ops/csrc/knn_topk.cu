@@ -20,18 +20,18 @@
 // cores that costs three TF32 products each (3xTF32, below), so the least
 // time is the larger of 4*T*(P*F + M*F) + T*P bytes at 3.35 TB/s and
 // 3 * 2*T*M*P*F flops at 495 TFLOP/s. At the phase-2 shape (T=3, M=64,
-// F=1024) that is 2*M/4 = 32 flops a byte against 3 * 495/3.35 = 443 at the
+// F=1024) that is 2*M/4 = 32 flops a byte against 495/3.35/3 = 49 at the
 // ridge: the bank's bytes.
 //
 // 3xTF32: every operand x is split into hi = x rounded to TF32 (10 explicit
-// mantissa bits) and lo = x - hi, which the tensor cores read to 10 bits
-// as well, and a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the
-// small terms first, in float32 accumulators; a_lo.b_lo (about 2^-22
-// relative) is dropped. Each product is then within about 2^-21 of a.b
-// relative to |a||b|, so over F=1024 terms the cosine is off by at most
-// about 2^-21 (|f.b| <= |f||b|) plus the accumulators' rounding, below
-// 1e-5, the distance tolerance held against the plain version. The norms
-// are exact float32 sums of squares on the CUDA cores.
+// mantissa bits) and lo = x - hi, which the tensor cores read to 10 bits as
+// well, and a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the small
+// terms first, in float32 accumulators; a_lo.b_lo (about 2^-22 relative) is
+// dropped. Each product is then within about 2^-21 of a.b relative to
+// |a||b|, so over F=1024 terms the cosine is off by at most about 2^-21
+// (|f.b| <= |f||b|) plus the accumulators' rounding, well inside the 1e-5
+// distance tolerance held against the plain version. The norms are exact
+// float32 sums of squares on the CUDA cores.
 //
 // Design:
 // - Pass 1, grid (splits, ceil(M/64), T), 8 warps. A block holds 64 feature
@@ -42,22 +42,24 @@
 //   (M, P, F); 4-byte copies where rows are not 16-byte aligned) with two
 //   chunks in flight while one is multiplied. A stage holds the 64 feature
 //   rows, then the tile's 64 bank rows, row-major in rows of 32+4 floats
-//   (16-byte aligned rows, conflict-free fragment loads). The ring
-//   runs on across tiles, so the next tile's first chunks load while this
-//   tile's candidates are selected.
-//   Each warp owns a 16x32 piece of the 64x64 product as four m16n8
-//   accumulators of mma.sync m16n8k8 TF32 on the tensor cores, fed from
-//   shared memory by plain loads (WMMA's loads compiled to generic ones
-//   there, and its m16n16k8 to twice as many m16n8k4). Two threads a row sum
-//   the rows' squares from the same stages (the feature rows on a block's
-//   first tile only). The product tile goes to shared memory, and each
-//   warp merges 8 rows of it into running top-k lists (kept in shared
-//   memory; while a row is merged, lane j holds its j-th best). A tile
-//   whose candidates beat the k-th best in numbers is bitonic-sorted across
-//   the warp and merged with the list in one network; a few survivors are
-//   inserted one at a time by ballot and shuffle. The (M, P) matrix never
-//   reaches device memory. Each block writes its k best per row to
-//   (T, M, splits, k) scratch.
+//   (16-byte aligned rows; the fragment loads are free of bank conflicts).
+//   The ring runs on across tiles, so the next tile's first chunks load
+//   while this tile's candidates are selected.
+// - The products: mma.sync m16n8k8 TF32 on the tensor cores, operands read
+//   by ldmatrix. Each warp owns a 32x32 quarter of the 64x64 product tile
+//   over half of each chunk's k (warps 0-3 k 0-15, warps 4-7 k 16-31), as
+//   eight m16n8 accumulators: against 16x32 pieces over all of k, a
+//   fragment loaded and split feeds twice the products. The two halves
+//   meet in shared memory at the end of the tile. Two threads a row sum the
+//   rows' squares from the same stages (the feature rows on a block's first
+//   tile only).
+// - The selection: each warp merges 8 rows of the product tile into running
+//   top-k lists (kept in shared memory; while a row is merged, lane j holds
+//   its j-th best). A tile whose candidates beat the k-th best in numbers is
+//   bitonic-sorted across the warp and merged with the list in one network;
+//   a few survivors are inserted one at a time by ballot and shuffle. The
+//   (M, P) matrix never reaches device memory. Each block writes its k best
+//   per row to (T, M, splits, k) scratch.
 // - Pass 2, one warp per (t, m) row, merges the splits' lists into the
 //   final k the same way, 32 candidates at a time.
 // Splitting P across blocks keeps the card busy: at the phase-2 shape
@@ -82,19 +84,24 @@ constexpr int kMergeThreads = 128;
 constexpr int kStageFloats = (kRows + kCols) * kStride;
 constexpr int kCopies = (kRows + kCols) * (kChunk / 4) / kThreads;
 constexpr int kDsStride = kCols + 4;  // product tile row, 16-byte aligned
-constexpr int kWarpCols = kRows * kCols / kWarps / 16;  // a warp: 16 rows
-constexpr int kWarpTiles = kWarpCols / 8;  // m16n8 accumulators a warp
+constexpr int kWarpRows = 32;         // a warp's piece of the product tile
+constexpr int kWarpCols = 32;
+constexpr int kWarpM = kWarpRows / 16;     // its m16 fragments of A
+constexpr int kWarpTiles = kWarpCols / 8;  // its n8 fragments of B
+constexpr int kQuarters = kRows / kWarpRows * (kCols / kWarpCols);
+constexpr int kHalfChunk = kChunk / 2;     // k of a chunk a warp multiplies
 constexpr int kFewSurvivors = 8;  // up to this many: insert one at a time
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = INT_MAX;    // index of an empty or out-of-range slot
-// dynamic shared memory: the ring, the product tile, the lists, the norms;
-// every part starts at a multiple of 128 bytes
+// dynamic shared memory: the ring, the two halves of the product tile, the
+// lists, the norms; every part starts at a multiple of 128 bytes
 constexpr int kSmemBytes =
-    4 * (kStages * kStageFloats + kRows * kDsStride + 2 * kRows * 32 +
+    4 * (kStages * kStageFloats + 2 * kRows * kDsStride + 2 * kRows * 32 +
          kRows + kCols);
 
-static_assert(kCols == 32 || kCols == 64, "one or two candidates a lane");
-static_assert(kCols % kWarpCols == 0, "whole warp tiles across");
+static_assert(kCols == 64, "the selection takes two candidates a lane");
+static_assert(2 * kQuarters == kWarps, "two warps a quarter, one a k half");
+static_assert(kWarpTiles % 2 == 0, "B fragments load two n8 tiles at once");
 static_assert(kRows % kWarps == 0, "each warp merges whole rows");
 static_assert(kCopies * kThreads == (kRows + kCols) * (kChunk / 4),
               "the threads copy a stage in whole 16-byte pieces");
@@ -212,6 +219,19 @@ __device__ __forceinline__ void copy4(float* dst, const float* src,
                "l"(src), "r"(bytes));
 }
 
+// Four 8x8 matrices of 16-bit elements from shared memory, lanes 8i..8i+7
+// giving the row addresses of matrix i; for 32-bit elements, an 8x4 block
+// each, lane l receiving row l / 4, element l % 4 of every block: the
+// fragment layouts of mma.sync m16n8k8 TF32 for A (row-major) and B
+// (column-major, stored with n as the row).
+__device__ __forceinline__ void load_matrices(unsigned (&r)[4],
+                                              unsigned address) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(address));
+}
+
 __device__ __forceinline__ void commit_copies() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -249,6 +269,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+
 __global__ void __launch_bounds__(kThreads, 2)
     knn_partial(const float* __restrict__ feats, const float* __restrict__ bank,
                 const unsigned char* __restrict__ mask, int M, int P, int F,
@@ -256,9 +277,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                 float* __restrict__ part_d, int* __restrict__ part_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* const ring = reinterpret_cast<float*>(smem);
-  float* const Ds = ring + kStages * kStageFloats;  // [kRows][kDsStride]
+  // the product tile as two halves over k, each [kRows][kDsStride]
+  float* const Ds = ring + kStages * kStageFloats;
+  float* const Ds2 = Ds + kRows * kDsStride;
   // running top-k of each row, entry j of row r at [r * 32 + j] (j < k valid)
-  float* const Ld = Ds + kRows * kDsStride;
+  float* const Ld = Ds2 + kRows * kDsStride;
   int* const Li = reinterpret_cast<int*>(Ld + kRows * 32);
   float* const inv_nf = reinterpret_cast<float*>(Li + kRows * 32);
   float* const inv_nb = inv_nf + kRows;
@@ -277,19 +300,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int row_lo = warp * (kRows / kWarps);
   const int row_hi = min(row_lo + kRows / kWarps, rows_here);
 
-  // product layout: the warp's 16 x kWarpCols piece of the tile; in it,
-  // lane holds rows lr and lr + 8, columns 2 lc and 2 lc + 1 of each m16n8
-  // tile
-  const int wrow = warp / (kCols / kWarpCols) * 16;
-  const int wcol = warp % (kCols / kWarpCols) * kWarpCols;
-  const int lr = lane >> 2;
-  const int lc = lane & 3;
+  // product layout: warp w multiplies quarter w % 4 of the tile over k half
+  // w / 4; in an m16n8 accumulator, lane holds rows lane / 4 and lane / 4 +
+  // 8, columns 2 (lane % 4) and 2 (lane % 4) + 1
+  const int quarter = warp % kQuarters;
+  const int khalf = warp / kQuarters * kHalfChunk;
+  const int wrow = quarter / (kCols / kWarpCols) * kWarpRows;
+  const int wcol = quarter % (kCols / kWarpCols) * kWarpCols;
+  float* const Dw = warp < kQuarters ? Ds : Ds2;
+  // ldmatrix row addresses, in floats from a stage: A, rows 0-7 and 8-15 of
+  // a 16-row fragment at k 0-3, then at k 4-7; B, n8 tiles j and j + 1,
+  // each at k 0-3 and 4-7
+  const int a_at = (wrow + (lane & 15)) * kStride + (lane >> 4) * 4 + khalf;
+  const int b_at = (kRows + wcol + (lane & 7) + (lane >> 4) * 8) * kStride +
+                   ((lane >> 3) & 1) * 4 + khalf;
   // norm layout: threads 2r and 2r+1 sum halves of stage row r
   const int nrow = tid >> 1;
   const int nhalf = (tid & 1) * (kChunk / 2);
 
-  for (int r = warp * (kRows / kWarps); r < (warp + 1) * (kRows / kWarps);
-       ++r) {
+  for (int r = row_lo; r < row_lo + kRows / kWarps; ++r) {
     Ld[r * 32 + lane] = __int_as_float(0x7f800000);  // +inf
     Li[r * 32 + lane] = kNone;
   }
@@ -310,21 +339,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < kCopies; ++i) {
       const int u = tid + i * kThreads;
       const int row = u / (kChunk / 4);
-      const int q = (u % (kChunk / 4)) * 4;
+      const int col = (u % (kChunk / 4)) * 4;
       const bool is_a = row < kRows;
       const int grow = is_a ? m0 + row : p0 + row - kRows;
       const bool in = grow < (is_a ? M : P);
       const float* src =
           (is_a ? f : b) + (in ? static_cast<long long>(grow) * F : 0) + c0 +
-          q;
-      float* d = dst + row * kStride + q;
+          col;
+      float* d = dst + row * kStride + col;
       if (vec) {
-        const bool ok = in && c0 + q < F;
+        const bool ok = in && c0 + col < F;
         copy16(d, ok ? src : f, ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool ok = in && c0 + q + e < F;
+          const bool ok = in && c0 + col + e < F;
           copy4(d + e, ok ? src + e : f, ok ? 4 : 0);
         }
       }
@@ -340,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     commit_copies();
   }
 
-  float acc[kWarpTiles][4] = {};
+  float acc[kWarpM][kWarpTiles][4] = {};
   float sq = 0.f;
   int tile = tile_lo, chunk = 0;
   for (int g = 0; g < total; ++g) {
@@ -352,23 +381,35 @@ __global__ void __launch_bounds__(kThreads, 2)
     commit_copies();
 
     const float* st = ring + (g % kStages) * kStageFloats;
-    const float* sa = st + (wrow + lr) * kStride + lc;
-    const float* sb = st + (kRows + wcol + lr) * kStride + lc;
+    const unsigned sa = shared_address(st + a_at);
+    const unsigned sb = shared_address(st + b_at);
 #pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 8) {
-      unsigned a_hi[4], a_lo[4];
-      split_tf32(sa[kk], a_hi[0], a_lo[0]);
-      split_tf32(sa[8 * kStride + kk], a_hi[1], a_lo[1]);
-      split_tf32(sa[kk + 4], a_hi[2], a_lo[2]);
-      split_tf32(sa[8 * kStride + kk + 4], a_hi[3], a_lo[3]);
+    for (int kk = 0; kk < kHalfChunk; kk += 8) {
+      unsigned a_hi[kWarpM][4], a_lo[kWarpM][4];
 #pragma unroll
-      for (int j = 0; j < kWarpTiles; ++j) {
-        unsigned b_hi0, b_lo0, b_hi1, b_lo1;
-        split_tf32(sb[j * 8 * kStride + kk], b_hi0, b_lo0);
-        split_tf32(sb[j * 8 * kStride + kk + 4], b_hi1, b_lo1);
-        mma_tf32(acc[j], a_lo, b_hi0, b_hi1);
-        mma_tf32(acc[j], a_hi, b_lo0, b_lo1);
-        mma_tf32(acc[j], a_hi, b_hi0, b_hi1);
+      for (int i = 0; i < kWarpM; ++i) {
+        unsigned a[4];
+        load_matrices(a, sa + (i * 16 * kStride + kk) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(a[e]), a_hi[i][e], a_lo[i][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpTiles; j += 2) {
+        unsigned bv[4], b_hi[4], b_lo[4];
+        load_matrices(bv, sb + (j * 8 * kStride + kk) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(bv[e]), b_hi[e], b_lo[e]);
+#pragma unroll
+        for (int i = 0; i < kWarpM; ++i) {
+          mma_tf32(acc[i][j], a_lo[i], b_hi[0], b_hi[1]);
+          mma_tf32(acc[i][j + 1], a_lo[i], b_hi[2], b_hi[3]);
+          mma_tf32(acc[i][j], a_hi[i], b_lo[0], b_lo[1]);
+          mma_tf32(acc[i][j + 1], a_hi[i], b_lo[2], b_lo[3]);
+          mma_tf32(acc[i][j], a_hi[i], b_hi[0], b_hi[1]);
+          mma_tf32(acc[i][j + 1], a_hi[i], b_hi[2], b_hi[3]);
+        }
       }
     }
     // the feature rows are the same on every tile: their norms once
@@ -393,24 +434,26 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     sq = 0.f;
 #pragma unroll
-    for (int j = 0; j < kWarpTiles; ++j) {
-      float* d = Ds + (wrow + lr) * kDsStride + wcol + j * 8 + 2 * lc;
-      *reinterpret_cast<float2*>(d) = make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(d + 8 * kDsStride) =
-          make_float2(acc[j][2], acc[j][3]);
+    for (int i = 0; i < kWarpM; ++i) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int j = 0; j < kWarpTiles; ++j) {
+        float* d = Dw + (wrow + i * 16 + (lane >> 2)) * kDsStride + wcol +
+                   j * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(d) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(d + 8 * kDsStride) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
     }
     __syncthreads();
     const int p0 = tile * kCols;
-    // a lane's candidates: columns lane and, for 64-row tiles, lane + 32;
+    const bool in0 = p0 + lane < P, in1 = p0 + lane + 32 < P;
     // a masked row is +inf whatever its values (a zero pad row is 0/0)
-    const bool in0 = p0 + lane < P;
-    const bool in1 = kCols == 64 && p0 + lane + 32 < P;
     const bool ok0 = in0 && valid_row[p0 + lane];
     const bool ok1 = in1 && valid_row[p0 + lane + 32];
-    const float nb0 = inv_nb[lane];
-    const float nb1 = kCols == 64 ? inv_nb[lane + 32] : 0.f;
+    const float nb0 = inv_nb[lane], nb1 = inv_nb[lane + 32];
     // one copy of the selection code, not one per row: the lists live in
     // shared memory
 #pragma unroll 1
@@ -418,18 +461,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       float ld = Ld[row * 32 + lane];
       int li = Li[row * 32 + lane];
       const float nf = inv_nf[row];
-      float c0 = ok0 ? 1.0f - Ds[row * kDsStride + lane] * nf * nb0
+      const float* d0 = Ds + row * kDsStride + lane;
+      const float* d1 = Ds2 + row * kDsStride + lane;
+      float c0 = ok0 ? 1.0f - (d0[0] + d1[0]) * nf * nb0
                      : __int_as_float(0x7f800000);
-      int i0 = in0 ? p0 + lane : kNone;
-      if (kCols == 32) {
-        take(ld, li, c0, i0, k, lane);
-        Ld[row * 32 + lane] = ld;
-        Li[row * 32 + lane] = li;
-        continue;
-      }
-      float c1 = ok1 ? 1.0f - Ds[row * kDsStride + lane + 32] * nf * nb1
+      float c1 = ok1 ? 1.0f - (d0[32] + d1[32]) * nf * nb1
                      : __int_as_float(0x7f800000);
-      int i1 = in1 ? p0 + lane + 32 : kNone;
+      int i0 = in0 ? p0 + lane : kNone, i1 = in1 ? p0 + lane + 32 : kNone;
       const float wd = __shfl_sync(kFull, ld, k - 1);
       const int wi = __shfl_sync(kFull, li, k - 1);
       const int n = __popc(__ballot_sync(kFull, before(c0, i0, wd, wi))) +
@@ -451,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       Ld[row * 32 + lane] = ld;
       Li[row * 32 + lane] = li;
     }
-    // Ds, inv_nb and the lists are next written after the next tile's
+    // Ds, Ds2, inv_nb and the lists are next written after the next tile's
     // first __syncthreads, when every warp is done here
     ++tile;
     chunk = 0;
