@@ -37,7 +37,8 @@ Phases, any failure exits non-zero and prints no result:
 5. numbers - ms per step; each kernel's device time, launches and bound; the
              plain versions' times; one library call each as yardstick (timed
              only; the port never calls it): ``torch.optim.Adam(fused=True)``
-             and ``torch.topk`` over the masked ``1 - bmm``.
+             and ``torch.topk`` over the masked ``1 - bmm``. The card's
+             clocks, power and temperature are read beside each kNN window.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,10 +96,11 @@ def card_line() -> str:
 
 
 def gpu_clocks() -> str:
-    """The card's SM clock, power draw and temperature, as nvidia-smi reads
-    them now."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
-                          "temperature.gpu", "--format=csv,noheader"],
+    """The card's SM and memory clocks, power draw and temperature, as
+    nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                          "power.draw,temperature.gpu",
+                          "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True)
     return out.stdout.strip().splitlines()[0].strip()
@@ -611,7 +613,7 @@ def knn_bound(feats, mask, k: int, card: str):
 def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
     """Kernel, plain version and library call on the main path's kNN inputs
     and on a full-taxonomy bank (P=55,040), each timed twice in turns by
-    the profiler's device time, with the card's clock, power and
+    the profiler's device time, with the card's clocks, power and
     temperature read before and after each window."""
     gen = torch.Generator(device=dev).manual_seed(9)
     shapes = {"main": main_inputs,
@@ -651,8 +653,8 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
             f"1-bmm {ms['library']!r}; bound {bound!r} by {by} ({flops} "
             f"flop, {nbytes} B); runs {json.dumps(runs)}; the kernel's "
             f"passes {json.dumps(passes)}; on {card}")
-        log(f"numbers: cosine_knn P={bank.shape[1]} SM clock, power draw, "
-            f"temperature before and after each window of runs: "
+        log(f"numbers: cosine_knn P={bank.shape[1]} SM and memory clocks, "
+            f"power draw, temperature before and after each window of runs: "
             f"{json.dumps(clocks)}")
         out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                     "library_ms": ms["library"], "bound_ms": bound,

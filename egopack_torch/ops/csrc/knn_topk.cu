@@ -269,7 +269,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-
 __global__ void __launch_bounds__(kThreads, 2)
     knn_partial(const float* __restrict__ feats, const float* __restrict__ bank,
                 const unsigned char* __restrict__ mask, int M, int P, int F,

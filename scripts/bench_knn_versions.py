@@ -6,15 +6,17 @@
 Each ``label=root`` names a checkout that holds an ``egopack_torch``
 package; its ``ops/knn_topk.py`` wrapper and ``ops/csrc/knn_topk.cu`` are
 loaded under a name of their own and built into that checkout's
-``egopack_torch/_build``. Every version is first held against the plain
-version (distances within 1e-5, indices equal but for near-ties; a version
-that disagrees is reported so and timed all the same, for variants made to
-take a part of the kernel out), then all are timed in turns (the given order, then the reverse) at T=3, M=64,
-F=1024, k=8 for P=2048 (2010 valid rows a bank, as the phase-2 step's
-banks) and P=55,040 (50,000 valid). Each window is ``chip_smoke.device_ms``
-over 20 calls, with the two passes apart, and the card's SM clock, power
-draw and temperature are read by ``nvidia-smi`` before and after it. The
-last line is a JSON object of every window.
+``egopack_torch/_build``. The SASS of each version's pass 1 is counted
+first. Every version is then held against the plain version (distances
+within 1e-5, indices equal but for near-ties; a version that disagrees is
+reported so and timed all the same, for variants made to take a part of
+the kernel out), and all are timed in turns (the given order, then the
+reverse) at T=3, M=64, F=1024, k=8 for P=2048 (2010 valid rows a bank, as
+the phase-2 step's banks) and P=55,040 (50,000 valid), the latter on two
+draws of inputs. Each window is ``chip_smoke.device_ms`` over 20 calls,
+with the two passes apart, and the card's SM and memory clocks, power draw
+and temperature are read by ``nvidia-smi`` before and after it. The last
+line is a JSON object of every window.
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import re
+import subprocess
 import sys
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -33,7 +38,11 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SHAPES = {"P=2048": (2048, 2010), "P=55040": (55040, 50000)}
+# the second P=55,040 draw: new inputs in new memory (the first draw stays
+# allocated), to tell a time that follows the data or its placement from
+# one that follows the kernel
+SHAPES = {"P=2048": (2048, 2010), "P=55040": (55040, 50000),
+          "P=55040, second draw": (55040, 50000)}
 ITERS = 20
 
 
@@ -47,6 +56,26 @@ def load_wrapper(root: Path, name: str):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return importlib.import_module(f"{name}.ops.knn_topk")
+
+
+def sass_summary(wrapper) -> str:
+    """What pass 1 (``knn_partial``) of a version's built library compiled
+    to: its count of each tensor-core, copy and shared-memory load
+    instruction in the SASS (``cuobjdump -sass``) and its registers
+    (``cuobjdump -res-usage``)."""
+    build = wrapper.cuda_build
+    lib = str(build.library_path("knn_topk"))
+    tool = str(Path(build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ") if "knn_partial" in f)
+    counts = Counter(re.findall(
+        r"\b(HMMA\.\S+|LDGSTS\S*|LDSM\S*|LD\.E\S*|LDS(?:\.\d+)?)\s", body))
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                           text=True, check=True).stdout
+    regs = re.search(r"knn_partial.*?REG:(\d+)", usage, re.S)
+    return (", ".join(f"{n} {op}" for op, n in sorted(counts.items()))
+            + f"; {regs.group(1) if regs else '?'} registers")
 
 
 def main(argv) -> int:
@@ -63,8 +92,11 @@ def main(argv) -> int:
                 for i, (label, root) in enumerate(versions.items())}
     with ThreadPoolExecutor(len(wrappers)) as pool:  # one nvcc each
         list(pool.map(lambda w: w.load_library(), wrappers.values()))
+    record = {"card": card, "sass": {}, "checks": {}, "shapes": {}}
+    for label, w in wrappers.items():
+        record["sass"][label] = sass_summary(w)
+        print(f"{label}: knn_partial SASS {record['sass'][label]}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    record = {"card": card, "shapes": {}}
     for key, (p, valid) in SHAPES.items():
         feats, bank, mask = cs.knn_inputs(gen, 3, 64, p, cs.HIDDEN, valid)
         ref_idx, ref_dist = wrappers[next(iter(wrappers))] \
@@ -79,7 +111,7 @@ def main(argv) -> int:
                 agrees = f"DISAGREES with the plain version: {e}"
             print(f"{key} {label}: max_abs_err "
                   f"{cs.knn_err(dist, ref_dist)!r}, {agrees}", flush=True)
-            record.setdefault("checks", {})[f"{key} {label}"] = agrees
+            record["checks"][f"{key} {label}"] = agrees
         windows = []
         order = list(wrappers)
         for seq in (order, order[::-1]):
