@@ -29,7 +29,7 @@
 // terms first, in float32 accumulators; a_lo.b_lo (about 2^-22 relative) is
 // dropped. Each product is then within about 2^-21 of a.b relative to
 // |a||b|, so over F=1024 terms the cosine is off by at most about 2^-21
-// (|f.b| <= |f||b|) plus the accumulators' rounding, well inside the 1e-5
+// (|f.b| <= |f||b|) plus the accumulators' rounding, inside the 1e-5
 // distance tolerance held against the plain version. The norms are exact
 // float32 sums of squares on the CUDA cores.
 //

@@ -15,7 +15,7 @@ The kernel streams the bank, never stores the ``(M, P)`` matrix, and runs as
 one launch pair per call for all T tasks (pass 1 over P-splits, pass 2 to
 merge them). Its products run on the tensor cores as 3xTF32 (three TF32
 products for each float32 one) and sum in another order than the plain
-version's matrix product, so distances differ by up to about 1e-6 and
+version's matrix product, so distances differ by up to a few 1e-6 and
 indices may swap where two distances lie within that error. No gradient:
 the JAX op is non-differentiable.
 """
