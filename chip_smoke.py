@@ -157,7 +157,8 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, by_name=None, windows: int = 3) -> float:
+def device_ms(fn, iters: int, by_name=None, windows: int = 3,
+              counts=None) -> float:
     """Device time of ``fn`` per call: the time the card is busy with the
     kernels, copies and fills of ``iters`` calls (``torch.profiler``), over
     ``iters``. Gaps in which the card waits for the host are not counted.
@@ -166,7 +167,8 @@ def device_ms(fn, iters: int, by_name=None, windows: int = 3) -> float:
     the card: a window with none, another with about half), which reads as
     a shorter time. So ``windows`` windows are profiled and only those with
     the most events count; if every window is empty, this raises.
-    ``by_name``: a dict that receives each kernel's own ms per call."""
+    ``by_name``: a dict that receives each kernel's own ms per call;
+    ``counts``: a list that receives each window's number of device events."""
     fn()
     torch.cuda.synchronize()
     taken = []
@@ -177,6 +179,8 @@ def device_ms(fn, iters: int, by_name=None, windows: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         taken.append(device_events(prof))
+    if counts is not None:
+        counts.append([len(events) for events in taken])
     most = max(len(events) for events in taken)
     require(most > 0, "the profiler recorded no device events")
     kept = [events for events in taken if len(events) == most]
@@ -634,11 +638,12 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
                 "library": lambda: library(feats, bank, mask)}
         runs = {a: [] for a in arms}
         clocks = {a: [] for a in arms}
+        counts = {a: [] for a in arms}
         order = ("plain", "kernel", "library")
         for seq in (order, order[::-1]):
             for a in seq:
                 before = gpu_clocks()
-                runs[a].append(device_ms(arms[a], 20))
+                runs[a].append(device_ms(arms[a], 20, counts=counts[a]))
                 clocks[a].append([before, gpu_clocks()])
         ms = {a: sum(v) / len(v) for a, v in runs.items()}
         kernel_parts = {}
@@ -655,7 +660,8 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
             f"passes {json.dumps(passes)}; on {card}")
         log(f"numbers: cosine_knn P={bank.shape[1]} SM and memory clocks, "
             f"power draw, temperature before and after each window of runs: "
-            f"{json.dumps(clocks)}")
+            f"{json.dumps(clocks)}; device events in each profiled window: "
+            f"{json.dumps(counts)}")
         out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                     "library_ms": ms["library"], "bound_ms": bound,
                     "bound_by": by}
