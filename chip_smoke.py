@@ -65,7 +65,7 @@ from egopack_torch.entry import (ACTIVE, AUX_TASKS, build_egopack_step,
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops.knn import prototype_topk
-from egopack_torch.profiling import busy_us, device_events
+from egopack_torch.profiling import busy_us, device_events, mean_us
 from egopack_torch.train import optim as topt
 from egopack_torch.train.system import CKPT_KEYS
 
@@ -82,6 +82,7 @@ K, PROTO_BATCH, PROTO_BATCHES = 8, 256, 8
 KNN_TOL = 1e-5
 # (P, valid rows) of the kNN kernel checks; valid < 1 is a random share
 KNN_CASES = ((2048, 1900), (1999, 0.8), (55040, 50000), (256, 5))
+KNN_PASSES = ("knn_partial", "knn_merge")  # the kernels of one kNN call
 
 
 def log(msg: str) -> None:
@@ -157,18 +158,9 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, by_name=None, windows: int = 3,
-              counts=None) -> float:
-    """Device time of ``fn`` per call: the time the card is busy with the
-    kernels, copies and fills of ``iters`` calls (``torch.profiler``), over
-    ``iters``. Gaps in which the card waits for the host are not counted.
-
-    The profiler now and then drops device events from a window (seen on
-    the card: a window with none, another with about half), which reads as
-    a shorter time. So ``windows`` windows are profiled and only those with
-    the most events count; if every window is empty, this raises.
-    ``by_name``: a dict that receives each kernel's own ms per call;
-    ``counts``: a list that receives each window's number of device events."""
+def profiled_windows(fn, iters: int, windows: int = 3):
+    """The device events (``torch.profiler``) of ``windows`` windows of
+    ``iters`` back-to-back calls of ``fn``, after one call to warm up."""
     fn()
     torch.cuda.synchronize()
     taken = []
@@ -179,18 +171,47 @@ def device_ms(fn, iters: int, by_name=None, windows: int = 3,
                 fn()
             torch.cuda.synchronize()
         taken.append(device_events(prof))
+    return taken
+
+
+def device_ms(fn, iters: int, counts=None) -> float:
+    """Device time of ``fn`` per call: the time the card is busy with the
+    kernels, copies and fills of ``iters`` calls, over ``iters``. Gaps in
+    which the card waits for the host are not counted.
+
+    The profiler now and then drops device events from a window (seen on
+    the card: a window with none, another with about half), which reads as
+    a shorter time. So three windows are profiled and only those with the
+    most events count; if every window is empty, this raises. A drop that
+    hits every window alike still reads short: ``launch_ms`` is robust to
+    it where the kernels a call launches are known. ``counts``: a list that
+    receives the windows' numbers of device events."""
+    taken = profiled_windows(fn, iters)
     if counts is not None:
         counts.append([len(events) for events in taken])
     most = max(len(events) for events in taken)
     require(most > 0, "the profiler recorded no device events")
     kept = [events for events in taken if len(events) == most]
-    if by_name is not None:
-        for events in kept:
-            for e in events:
-                us = e.time_range.end - e.time_range.start
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + us / 1e3 / iters / len(kept))
     return sum(busy_us(events) for events in kept) / len(kept) / 1e3 / iters
+
+
+def launch_ms(fn, iters: int, names, parts=None, counts=None) -> float:
+    """Device time per call of ``fn``, which launches each kernel named in
+    ``names`` (by substring) once a call, one after the other, and nothing
+    else on the card: the sum of the kernels' mean durations over three
+    profiled windows of ``iters`` calls. Events the profiler drops leave the
+    means as they are (in this script's process it recorded 35 of every
+    window's 40 kNN kernels, where ``scripts/bench_knn_versions.py``
+    records all 40, and the busy time of ``device_ms`` read 12-15% short).
+    ``parts``: a dict that receives each kernel's ms; ``counts``: a list
+    that receives the windows' numbers of device events."""
+    taken = profiled_windows(fn, iters)
+    if counts is not None:
+        counts.append([len(events) for events in taken])
+    ms = {n: us / 1e3 for n, us in mean_us(taken, names).items()}
+    if parts is not None:
+        parts.update(ms)
+    return sum(ms.values())
 
 
 def require(ok: bool, msg: str) -> None:
@@ -402,10 +423,11 @@ def phase_numbers(mtl, dev, card: str) -> dict:
     arms["library"] = lib.step
     dev_runs = {k: [] for k in arms}
     gap_runs = {k: [] for k in arms}
+    counts = {k: [] for k in arms}
     order = ("plain", "fused", "library", "fused_bf16")
     for seq in (order, order[::-1]):
         for k in seq:
-            dev_runs[k].append(device_ms(arms[k], 30))
+            dev_runs[k].append(device_ms(arms[k], 30, counts[k]))
             gap_runs[k].append(time_ms(arms[k], 30))
     ms = {k: sum(v) / len(v) for k, v in dev_runs.items()}
     gap_ms = {k: sum(v) / len(v) for k, v in gap_runs.items()}
@@ -426,7 +448,8 @@ def phase_numbers(mtl, dev, card: str) -> dict:
         f"{gap_ms['fused']!r}, bf16 moments {gap_ms['fused_bf16']!r}, plain "
         f"{gap_ms['plain']!r}, library {gap_ms['library']!r}; on {card}")
     log(f"numbers: runs device {json.dumps(dev_runs)}; with gaps "
-        f"{json.dumps(gap_runs)}")
+        f"{json.dumps(gap_runs)}; device events in each profiled window "
+        f"{json.dumps(counts)}")
     return {"ms": ms["fused"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
@@ -617,8 +640,9 @@ def knn_bound(feats, mask, k: int, card: str):
 def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
     """Kernel, plain version and library call on the main path's kNN inputs
     and on a full-taxonomy bank (P=55,040), each timed twice in turns by
-    the profiler's device time, with the card's clocks, power and
-    temperature read before and after each window."""
+    the profiler (the kernel by ``launch_ms``, the others by
+    ``device_ms``), with the card's clocks, power and temperature read
+    before and after each window and the windows' event counts."""
     gen = torch.Generator(device=dev).manual_seed(9)
     shapes = {"main": main_inputs,
               "full": knn_inputs(gen, 3, 64, 55040, HIDDEN, 50000)}
@@ -639,21 +663,27 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
         runs = {a: [] for a in arms}
         clocks = {a: [] for a in arms}
         counts = {a: [] for a in arms}
+        passes = {n: [] for n in KNN_PASSES}
         order = ("plain", "kernel", "library")
         for seq in (order, order[::-1]):
             for a in seq:
                 before = gpu_clocks()
-                runs[a].append(device_ms(arms[a], 20, counts=counts[a]))
+                if a == "kernel":
+                    parts = {}
+                    runs[a].append(launch_ms(arms[a], 20, KNN_PASSES, parts,
+                                             counts[a]))
+                    for n in KNN_PASSES:
+                        passes[n].append(parts[n])
+                else:
+                    runs[a].append(device_ms(arms[a], 20, counts[a]))
                 clocks[a].append([before, gpu_clocks()])
         ms = {a: sum(v) / len(v) for a, v in runs.items()}
-        kernel_parts = {}
-        device_ms(arms["kernel"], 20, kernel_parts)
-        passes = {p: sum(v for n, v in kernel_parts.items() if p in n)
-                  for p in ("knn_partial", "knn_merge")}
+        passes = {n: sum(v) / len(v) for n, v in passes.items()}
         bound, by, flops, nbytes = knn_bound(feats, mask, K, card)
         log(f"numbers: cosine_knn T={feats.shape[0]} M={feats.shape[1]} "
             f"F={feats.shape[2]} P={bank.shape[1]} ({int(mask.sum())} valid) "
-            f"k={K}: device ms per call (torch.profiler) kernel "
+            f"k={K}: device ms per call (torch.profiler; the kernel by its "
+            f"passes' mean durations) kernel "
             f"{ms['kernel']!r}, plain {ms['plain']!r}, torch.topk over masked "
             f"1-bmm {ms['library']!r}; bound {bound!r} by {by} ({flops} "
             f"flop, {nbytes} B); runs {json.dumps(runs)}; the kernel's "

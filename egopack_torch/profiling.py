@@ -7,7 +7,7 @@ of the union of their intervals, not the sum of their durations.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 from torch.autograd import DeviceType
 
@@ -29,3 +29,22 @@ def busy_us(events: Sequence) -> float:
         else:
             end = max(end, e)
     return total if end is None else total + end - start
+
+
+def mean_us(windows: Sequence[Sequence], names: Sequence[str]
+            ) -> Dict[str, float]:
+    """Mean duration in microseconds of each kernel in ``names`` (matched by
+    substring) over the events of all ``windows``. Every event must match
+    exactly one name, else this raises ``ValueError``. Events the profiler
+    dropped from a window leave the means as they are, where a window's
+    busy time would read short."""
+    durations = {n: [] for n in names}
+    for e in (e for events in windows for e in events):
+        hit = [n for n in names if n in e.name]
+        if len(hit) != 1:
+            raise ValueError(f"{e.name!r} is none or several of {names}")
+        durations[hit[0]].append(e.time_range.end - e.time_range.start)
+    missing = [n for n, us in durations.items() if not us]
+    if missing:
+        raise ValueError(f"no events of {missing}")
+    return {n: sum(us) / len(us) for n, us in durations.items()}

@@ -13,7 +13,7 @@ reported so and timed all the same, for variants made to take a part of
 the kernel out), and all are timed in turns (the given order, then the
 reverse) at T=3, M=64, F=1024, k=8 for P=2048 (2010 valid rows a bank, as
 the phase-2 step's banks) and P=55,040 (50,000 valid), the latter on two
-draws of inputs. Each window is ``chip_smoke.device_ms`` over 20 calls,
+draws of inputs. Each window is ``chip_smoke.launch_ms`` over 20 calls,
 with the two passes apart and its profiled windows' event counts, and the
 card's SM and memory clocks, power draw and temperature are read by
 ``nvidia-smi`` before and after it. The last
@@ -118,14 +118,12 @@ def main(argv) -> int:
         for seq in (order, order[::-1]):
             for label in seq:
                 w = wrappers[label]
-                parts, counts = {}, []
+                passes, counts = {}, []
                 before = cs.gpu_clocks()
-                ms = cs.device_ms(
+                ms = cs.launch_ms(
                     lambda w=w: w.cosine_knn(feats, bank, mask, cs.K), ITERS,
-                    parts, counts=counts)
+                    cs.KNN_PASSES, passes, counts)
                 after = cs.gpu_clocks()
-                passes = {n: sum(v for name, v in parts.items() if n in name)
-                          for n in ("knn_partial", "knn_merge")}
                 windows.append({"version": label, "ms": ms, **passes,
                                 "clocks_before": before,
                                 "clocks_after": after, "events": counts[0]})
