@@ -399,9 +399,10 @@ def phase_small_vs_cpu(dev) -> None:
 def phase_numbers(mtl, dev, card: str) -> dict:
     """The kernel (f32 and bf16 moments), the plain version and the library
     call on the same full-width trainable tensors, each timed twice in turns
-    (one order, then the reverse) and two ways: ``device_ms``, the arm's own
-    time on the card, and ``time_ms``, which also counts the gaps in which
-    the card waits for the host to launch the next kernel."""
+    (one order, then the reverse) and two ways: the arm's own time on the
+    card (``launch_ms`` for the kernel, ``device_ms`` for the others), and
+    ``time_ms``, which also counts the gaps in which the card waits for the
+    host to launch the next kernel."""
     params = mtl.system.params()
     names = mtl.optimizer.trainable_names(params)
     numel = sum(params[n].numel() for n in names)
@@ -427,7 +428,11 @@ def phase_numbers(mtl, dev, card: str) -> dict:
     order = ("plain", "fused", "library", "fused_bf16")
     for seq in (order, order[::-1]):
         for k in seq:
-            dev_runs[k].append(device_ms(arms[k], 30, counts[k]))
+            if k.startswith("fused"):  # one kernel launch a step
+                dev_runs[k].append(launch_ms(arms[k], 30, ("adam_kernel",),
+                                             counts=counts[k]))
+            else:
+                dev_runs[k].append(device_ms(arms[k], 30, counts[k]))
             gap_runs[k].append(time_ms(arms[k], 30))
     ms = {k: sum(v) / len(v) for k, v in dev_runs.items()}
     gap_ms = {k: sum(v) / len(v) for k, v in gap_runs.items()}
@@ -439,7 +444,8 @@ def phase_numbers(mtl, dev, card: str) -> dict:
     bound_ops_ms = ADAM_FLOPS_PER_ELEM * numel / fp32_peak(card) * 1e3
     log(f"numbers: {numel} trainable elements in {len(names)} leaves, "
         f"fused_adam {per_call} launch(es) per step; device ms per step "
-        f"(torch.profiler): fused_adam {ms['fused']!r}, bf16 moments "
+        f"(torch.profiler; the kernel by its mean duration): fused_adam "
+        f"{ms['fused']!r}, bf16 moments "
         f"{ms['fused_bf16']!r}, plain {ms['plain']!r}, "
         f"torch.optim.Adam(fused=True) {ms['library']!r}; bound "
         f"{bound_bytes_ms!r} (28 B/elem), bf16 {20 * numel / rate * 1e3!r} "
