@@ -25,8 +25,20 @@ Phases, any failure exits non-zero and prints no result:
              trainable parameters, an unchanged OSCC head. Then one step with
              dropout off against the same step with the plain Adam, and a
              small model on the card against the same model on the CPU.
-4. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
-             phase-1 state just trained merged into the phase-2 system, banks
+4. driver - the phase-1 CLI (``egopack_torch.main_temporal.main``) at
+             full width on a seeded Ego4D-layout fixture (1536-d features,
+             115 verbs, 478 nouns, 15 AR steps an epoch at batch 16): 3
+             epochs of AR+LTA+PNR with fused Adam, dropout 0.5, full-state
+             checkpoints and the MTL_ar-lta-pnr artifact, counts zeroed just
+             before and read just after. Finite epoch losses, one fused_adam
+             launch per optimizer step, meter blocks for AR, LTA and PNR, the
+             native feature gather in use, the artifact read back equal bit
+             for bit to the trained parameters; then a second call with
+             num_epochs=4 that resumes at epoch 4. Prints ms per optimizer
+             step over epochs 2-3 (wall clock, data loading included).
+5. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
+             phase-1 state of the driver's artifact (``load_artifact``, then
+             ``interop.from_flax``) merged into the phase-2 system, banks
              built on the card from 8 seeded AR batches of 256 clips, then 3
              warm-up + 20 timed steps with the kNN kernel and fused Adam
              (counts zeroed just before, read just after: one launch of each
@@ -34,7 +46,7 @@ Phases, any failure exits non-zero and prints no result:
              heads and the banks bit-identical. One step with the plain kNN
              from the same state, the eval step, and a small phase-2 model on
              the card against the CPU.
-5. numbers - ms per step; each kernel's device time, launches and bound; the
+6. numbers - ms per step; each kernel's device time, launches and bound; the
              plain versions' times; one library call each as yardstick (timed
              only; the port never calls it): ``torch.optim.Adam(fused=True)``
              and ``torch.topk`` over the masked ``1 - bmm``. The card's
@@ -47,9 +59,11 @@ The line before the last is the kernels' JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -58,15 +72,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import egopack_torch
+from egopack_torch import interop
+from egopack_torch.data.synthetic import generate_ego4d_fixture
 from egopack_torch.device import make_generator
-from egopack_torch.entry import (ACTIVE, AUX_TASKS, build_egopack_step,
-                                 build_mtl_step, build_system,
-                                 synthetic_batches)
+from egopack_torch.entry import (ACTIVE, AUX_TASKS, N_NOUNS, N_VERBS,
+                                 build_egopack_step, build_mtl_step,
+                                 build_system, synthetic_batches)
+from egopack_torch.io import native
+from egopack_torch.main_temporal import main as train_main
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops.knn import prototype_topk
 from egopack_torch.profiling import busy_us, device_events, mean_us
 from egopack_torch.train import optim as topt
+from egopack_torch.train.checkpoint import load_artifact
 from egopack_torch.train.system import CKPT_KEYS
 
 HERE = Path(__file__).resolve().parent
@@ -83,6 +102,10 @@ KNN_TOL = 1e-5
 # (P, valid rows) of the kNN kernel checks; valid < 1 is a random share
 KNN_CASES = ((2048, 1900), (1999, 0.8), (55040, 50000), (256, 5))
 KNN_PASSES = ("knn_partial", "knn_merge")  # the kernels of one kNN call
+# the driver's fixture: 8 videos of 30 actions give 240 AR clips (15 steps
+# of 16 an epoch); 64 OSCC windows give about 32 PNR clips (2 batches)
+DRIVER_VIDEOS, DRIVER_OSCC, DRIVER_EPOCHS = 8, 64, 3
+ARTIFACT = "MTL_ar-lta-pnr"
 
 
 def log(msg: str) -> None:
@@ -396,6 +419,98 @@ def phase_small_vs_cpu(dev) -> None:
         "parameters agree (rtol 1e-4, atol 1e-5)")
 
 
+def driver_overrides(root: str, tmp: str, epochs: int):
+    """The README's phase-1 command on the fixture, at full width."""
+    return ["k=1", "batch_size=16", "model.hidden_size=1024",
+            "model.temporal_pooling.hidden_size=1024",
+            "model.temporal_pooling.dropout=0.5", "enabled_tasks=[ar,lta,pnr]",
+            "optimizer.impl=fused", "save_model=True", "checkpoint.enable=True",
+            f"num_epochs={epochs}", "validation_split=val",
+            f"dataset_recognition.root={root}", f"dataset_oscc.root={root}",
+            f"dataset_lta.root={root}", f"dataset_pnr.root={root}",
+            f"artifact_dir={tmp}/artifacts", f"output_dir={tmp}/outputs",
+            f"checkpoint.dir={tmp}/checkpoints"]
+
+
+def phase_driver(tmp: str, card: str):
+    """The phase-1 CLI at full width; returns (the artifact's torch state,
+    fused_adam launches, optimizer steps, ms per step over epochs 2-3)."""
+    t0 = time.perf_counter()
+    root = generate_ego4d_fixture(f"{tmp}/ego4d", feature_dim=FEAT,
+                                  n_videos=DRIVER_VIDEOS, n_verbs=N_VERBS,
+                                  n_nouns=N_NOUNS, n_oscc=DRIVER_OSCC,
+                                  learnable=True)
+    log(f"driver: fixture of {DRIVER_VIDEOS} videos, feature_dim {FEAT}, "
+        f"{N_VERBS} verbs, {N_NOUNS} nouns "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tfa.fused_adam.launches = 0
+    calls0 = dict(native.PATH_CALLS)
+    t0 = time.perf_counter()
+    result = train_main(driver_overrides(root, tmp, DRIVER_EPOCHS))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = tfa.fused_adam.launches
+    stats = result["epochs"]
+    steps = sum(s["steps"] for s in stats)
+    require([s["epoch"] for s in stats] == list(range(1, DRIVER_EPOCHS + 1)),
+            f"epochs run: {stats}")
+    require(launches == steps and steps > 0,
+            f"fused_adam launched {launches} times in {steps} optimizer steps")
+    gathers = {k: native.PATH_CALLS[k] - calls0[k] for k in calls0}
+    require(gathers["native"] > 0 and gathers["numpy"] == 0,
+            f"feature gathers by path: {gathers}")
+    with open(f"{result['run_dir']}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r for r in records if "train/ar/loss" in r]
+    require(len(losses) == DRIVER_EPOCHS, f"{len(losses)} epoch records")
+    for r in losses:
+        for k, v in r.items():
+            if k.startswith("train/"):
+                require(math.isfinite(v), f"epoch {r['step']}: {k} = {v}")
+    val = result["val_metrics"]
+    require(sorted(val) == ["ar", "lta", "pnr"],
+            f"meter blocks for {sorted(val)}")
+    require(0.0 <= val["lta"]["verbs_ed"] <= 1.0
+            and 0.0 <= val["ar"]["verbs_top1"] <= 1.0, f"metrics {val}")
+    payload, meta = load_artifact(f"{tmp}/artifacts", ARTIFACT)
+    require(int(payload.pop("epoch")) == DRIVER_EPOCHS
+            and meta == {"tasks": list(ACTIVE), "num_epochs": DRIVER_EPOCHS},
+            f"artifact meta {meta}")
+    state = interop.from_flax(payload)
+    params = result["system"].params()
+    require(sorted(state) == sorted(params), "artifact leaves differ")
+    for n, v in state.items():
+        require(torch.equal(v, params[n].detach().cpu()),
+                f"artifact leaf {n} differs from the trained parameter")
+    timed = [s for s in stats if s["epoch"] >= 2]
+    ms_step = (sum(s["train_s"] for s in timed)
+               / sum(s["steps"] for s in timed) * 1e3)
+    last = {k: round(v, 6) for k, v in losses[-1].items()
+            if k.startswith("train/")}
+    log(f"driver: {DRIVER_EPOCHS} epochs, {steps} optimizer steps in "
+        f"{run_s:.1f} s; last epoch {json.dumps(last)}; validation AR verbs "
+        f"top-1 {val['ar']['verbs_top1']!r}, LTA verbs ED "
+        f"{val['lta']['verbs_ed']!r}, PNR localization error "
+        f"{val['pnr']['localization_error']!r}")
+    log(f"driver: fused_adam launches {launches} in {steps} optimizer steps; "
+        f"feature gathers {json.dumps(gathers)}; artifact {ARTIFACT} read "
+        f"back equal to the trained parameters ({len(state)} leaves)")
+    log(f"driver: {ms_step!r} ms per optimizer step over epochs 2-"
+        f"{DRIVER_EPOCHS} (wall clock, data loading included; "
+        f"{[round(s['train_s'], 3) for s in timed]} s for "
+        f"{[s['steps'] for s in timed]} steps) on {card}")
+    again = train_main(driver_overrides(root, tmp, DRIVER_EPOCHS + 1))
+    require(again["start_epoch"] == DRIVER_EPOCHS + 1
+            and [s["epoch"] for s in again["epochs"]] == [DRIVER_EPOCHS + 1],
+            f"the second call started at epoch {again['start_epoch']}")
+    log(f"driver: a second call with num_epochs={DRIVER_EPOCHS + 1} resumed "
+        f"at epoch {again['start_epoch']} from the full-state checkpoint")
+    del result, again
+    payload, _ = load_artifact(f"{tmp}/artifacts", ARTIFACT)
+    payload.pop("epoch")
+    return interop.from_flax(payload), launches, steps, ms_step
+
+
 def phase_numbers(mtl, dev, card: str) -> dict:
     """The kernel (f32 and bf16 moments), the plain version and the library
     call on the same full-width trainable tensors, each timed twice in turns
@@ -486,19 +601,21 @@ def restore(ego, params0, state0) -> None:
     ego.opt_state.count = state0.count
 
 
-def phase_egopack(mtl, dev, card: str):
-    """Phase 1 -> phase 2 in memory at full width."""
+def phase_egopack(mtl, loaded, dev, card: str):
+    """Phase 1 -> phase 2 at full width, from the phase-1 driver's
+    artifact (``loaded``, a torch state)."""
     t0 = time.perf_counter()
     proto = [synthetic_batches(mtl.system, PROTO_BATCH, FEAT, seed=100 + i,
                                names=("ar",))["ar"]
              for i in range(PROTO_BATCHES)]
     ego = build_egopack_step(BATCH, FEAT, HIDDEN,
-                             loaded=mtl.system.model.state_dict(),
+                             loaded=loaded,
                              proto_batches=proto, device=dev)
     del proto
     bank = ego.banks["ar"]
     p_pad, n_valid = bank.values.shape[0], bank.num_valid
-    log(f"egopack: phase-2 system with the phase-1 state merged in; banks "
+    log(f"egopack: phase-2 system with the artifact's phase-1 state merged "
+        f"in; banks "
         f"from {PROTO_BATCHES} AR batches of {PROTO_BATCH} clips: num_valid "
         f"{n_valid}, P_pad {p_pad} ({time.perf_counter() - t0:.1f} s)")
     params = ego.system.params()
@@ -731,8 +848,11 @@ def run(dev, card: str):
     knn_err_max, knn_swaps = phase_knn_kernel(dev)
     mtl, step_ms, launches, steps = phase_train(dev, card)
     phase_small_vs_cpu(dev)
-    ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(mtl, dev,
-                                                                   card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
+        loaded, drv_launches, drv_steps, drv_ms = phase_driver(tmp, card)
+    ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(
+        mtl, loaded, dev, card)
+    del loaded
     phase_small_egopack_vs_cpu(dev)
     nums = phase_numbers(mtl, dev, card)
     knn_nums = phase_knn_numbers(main_knn, dev, card)
@@ -753,7 +873,9 @@ def run(dev, card: str):
         **knn_nums["main"],
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
-               f"{step_ms!r} ms/step), cosine_knn ({knn_launches} launches "
+               f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
+               f"steps of the phase-1 driver, {drv_ms!r} ms per step), "
+               f"cosine_knn ({knn_launches} launches "
                f"in {ego_steps} phase-2 steps; {ego_ms!r} ms/step; "
                f"{knn_swaps} near-tie swaps in the kernel checks)")
     return kernels, summary

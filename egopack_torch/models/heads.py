@@ -13,7 +13,7 @@
 
 Submodule names follow the flax tree (``proj_fc0``, ``proj_ln``,
 ``proj_fc1``, ``cls{i}/TLinear_0``, ``cls/TLinear_0``, ``aux_{t}_cls{i}``,
-``aux_{t}_cls``). ``LTATask.generate_from_logits`` is not ported yet.
+``aux_{t}_cls``).
 """
 
 from __future__ import annotations
@@ -129,7 +129,26 @@ class RecognitionTask(ProjectionTask):
 
 
 class LTATask(RecognitionTask):
-    """LTA: per-node (verb, noun) heads."""
+    """LTA: per-node (verb, noun) heads + categorical sequence sampling
+    (reference lta.py:10-74)."""
+
+    @staticmethod
+    def generate_from_logits(logits: Sequence[torch.Tensor],
+                             generator: Optional[torch.Generator] = None,
+                             K: int = 5):
+        """K categorical samples per node per head from the softmax of the
+        logits (reference lta.py:63-71), drawn from ``generator``: returns
+        ``([(..., K) int64 per head], logits)``. JAX's keys cannot be
+        matched, so the samples agree with the JAX package in distribution
+        only."""
+        predictions = []
+        for head_logits in logits:
+            flat = head_logits.reshape(-1, head_logits.shape[-1])
+            probs = torch.softmax(flat.float(), dim=-1)
+            samples = torch.multinomial(probs, K, replacement=True,
+                                        generator=generator)
+            predictions.append(samples.reshape(*head_logits.shape[:-1], K))
+        return predictions, tuple(logits)
 
 
 class OSCCTask(ProjectionTask):

@@ -1,13 +1,78 @@
-"""Checkpoint helpers (counterpart of ``egopack_tpu/train/checkpoint.py``,
-the part that phase 2 needs so far)."""
+"""Artifacts and mid-run checkpoints (the port's counterpart of
+``egopack_tpu/train/checkpoint.py``).
+
+1. **Artifacts**, the hand-off between the phases:
+   ``<artifact_dir>/<name>/checkpoint.msgpack`` and ``meta.json``, named
+   ``MTL_<sorted tasks>`` as in the reference (``main_temporal.py:159``).
+   The payload is the flax parameter tree (``interop.to_flax``) plus
+   ``epoch``, written by ``msgpack_codec`` in the bytes flax writes, so
+   each package reads the other's artifacts. A name already taken keeps
+   its previous contents as ``checkpoint_v<n>.msgpack`` and
+   ``meta_v<n>.json``.
+2. **Mid-run resume**: the full train state (parameters, Adam moments and
+   count, the run's generator state, the epoch) by ``torch.save`` into
+   ``<dir>/step_<epoch>``, where the JAX package uses orbax.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import logging
+import os
+import os.path as osp
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from . import msgpack_codec
+
+logger = logging.getLogger(__name__)
+
 State = Dict[str, torch.Tensor]
+
+
+def save_artifact(artifact_dir: str, name: str, payload: Dict[str, Any],
+                  meta: Optional[Dict[str, Any]] = None) -> str:
+    """Write a named artifact; ``payload`` is a tree of numpy leaves."""
+    path = osp.join(artifact_dir, name)
+    os.makedirs(path, exist_ok=True)
+    ckpt = osp.join(path, "checkpoint.msgpack")
+    if osp.exists(ckpt):
+        # version the previous contents as wandb does: both phases use the
+        # same artifact name, so a later save must not destroy the first
+        v = 1
+        while osp.exists(osp.join(path, f"checkpoint_v{v}.msgpack")):
+            v += 1
+        os.replace(ckpt, osp.join(path, f"checkpoint_v{v}.msgpack"))
+        old_meta = osp.join(path, "meta.json")
+        if osp.exists(old_meta):
+            os.replace(old_meta, osp.join(path, f"meta_v{v}.json"))
+        logger.warning(
+            "Artifact %s existed; previous version kept as checkpoint_v%d",
+            name, v)
+    blob = msgpack_codec.packb(payload)
+    with open(ckpt, "wb") as f:
+        f.write(blob)
+    with open(osp.join(path, "meta.json"), "w") as f:
+        json.dump(meta or {}, f)
+    return path
+
+
+def load_artifact(artifact_dir: str,
+                  ref: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Load by reference: a bare ``NAME`` or wandb-style
+    ``entity/project/NAME:alias``. Returns (numpy tree, meta)."""
+    name = ref.split("/")[-1].split(":")[0]
+    path = osp.join(artifact_dir, name)
+    with open(osp.join(path, "checkpoint.msgpack"), "rb") as f:
+        payload = msgpack_codec.unpackb(f.read())
+    meta_path = osp.join(path, "meta.json")
+    meta = {}
+    if osp.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return payload, meta
 
 
 def merge_loaded_params(params: State, loaded: State) -> State:
@@ -18,3 +83,48 @@ def merge_loaded_params(params: State, loaded: State) -> State:
     aux classifiers and GraphONE are not in a phase-1 state). Leaves of
     ``loaded`` that ``params`` does not name are dropped."""
     return {name: loaded.get(name, value) for name, value in params.items()}
+
+
+# ---------------- full-state mid-run resume ----------------
+
+_STEP_RE = re.compile(r"step_(\d+)")
+
+
+def state_path(ckpt_dir: str, step: int) -> str:
+    return osp.join(ckpt_dir, f"step_{step:06d}")
+
+
+def save_state(ckpt_dir: str, step: int, state: Dict[str, Any]) -> None:
+    """Write one full-state checkpoint. The file appears under its name
+    only once complete (written beside it, then renamed), so a crash
+    mid-save never leaves a checkpoint that ``latest_state`` would pick."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = state_path(ckpt_dir, step)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def latest_state(ckpt_dir: str) -> Optional[int]:
+    """Newest complete ``step_<n>`` in ``ckpt_dir``, or None."""
+    if not osp.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for d in os.listdir(ckpt_dir)
+             if (m := _STEP_RE.fullmatch(d))]
+    return max(steps) if steps else None
+
+
+def restore_state(ckpt_dir: str, step: int,
+                  device: torch.device) -> Dict[str, Any]:
+    """The state :func:`save_state` wrote, its tensors on ``device``
+    (generator states stay on the CPU, where ``set_state`` reads them)."""
+    state = torch.load(state_path(ckpt_dir, step), map_location="cpu",
+                       weights_only=True)
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: v if k == "generator" else move(v)
+                    for k, v in tree.items()}
+        return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+    return move(state)

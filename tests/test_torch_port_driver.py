@@ -1,0 +1,261 @@
+"""The phase-1 slice as a whole: the port's CLI against the JAX package's
+``main_temporal`` on the same fixture, from the same initial parameters
+(JAX's, carried in by ``interop.from_flax``), dropout off.
+
+Per-epoch train losses and norms from ``metrics.jsonl`` agree at rtol 1e-4;
+the AR and PNR validation metrics agree (accuracies exactly, losses rtol
+1e-4); the LTA loss at rtol 1e-4, its edit distances (other samples) in
+range; the artifact has JAX's name and meta, and JAX's ``load_artifact``
+reads it to leaves within rtol 1e-4 / atol 1e-5 of JAX's own. A run resumed
+from an epoch-1 checkpoint equals the straight run bit for bit. The CLI
+runs as ``python -m egopack_torch.main_temporal`` with the phase-1 command
+of the verify notes."""
+
+import json
+import logging
+import os.path as osp
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import main_temporal as jmain
+from egopack_torch import interop
+from egopack_torch import main_temporal as tmain
+from egopack_torch.data.synthetic import generate_ego4d_fixture
+from egopack_torch.train import checkpoint as tckpt
+from egopack_torch.train import system as tsystem
+from egopack_tpu.train import checkpoint as jckpt
+from egopack_tpu.train import system as jsystem
+from torch_port_common import to_np
+
+torch.set_num_threads(1)
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+TOL = dict(rtol=1e-4, atol=1e-5)
+ARTIFACT = "MTL_ar-lta-pnr"
+
+
+def overrides(root, tmp, *extra):
+    """tests/test_end_to_end.py's phase-1 overrides, dropout off, two
+    epochs of steps_per_call=2 groups."""
+    return ["seed=1", "k=1", "num_epochs=2", "batch_size=4", "num_workers=0",
+            "model.hidden_size=32", "model.temporal_pooling.hidden_size=32",
+            "oscc_feat_size=32", "model.temporal_pooling.dropout=0",
+            "model.depth=2", "save_model=True",
+            f"dataset_recognition.root={root}", f"dataset_oscc.root={root}",
+            f"dataset_lta.root={root}", f"dataset_pnr.root={root}",
+            "validation_split=val", f"artifact_dir={tmp}/artifacts",
+            f"output_dir={tmp}/outputs", "parallel.data=1", "parallel.model=1",
+            "enabled_tasks=[ar,lta,pnr]", "steps_per_call=2", *extra]
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def records(run_dir):
+    with open(osp.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def by_epoch(recs, prefix):
+    out = {}
+    for r in recs:
+        vals = {k: v for k, v in r.items() if k.startswith(prefix)}
+        if vals:
+            out.setdefault(r["step"], {}).update(vals)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("ego4d"))
+    generate_ego4d_fixture(root, feature_dim=16, seed=2)
+    tmp = {k: str(tmp_path_factory.mktemp(k))
+           for k in ("jax", "port", "straight", "resumed")}
+    init = {}
+    mp = pytest.MonkeyPatch()
+    handler = _Lines()
+    port_logger = logging.getLogger("egopack_torch")
+    port_logger.addHandler(handler)
+    level = port_logger.level
+    port_logger.setLevel(logging.INFO)
+    try:
+        orig = jsystem.MultiTaskSystem.init_params
+
+        def capture(self, rng, feat_dim):
+            params = orig(self, rng, feat_dim)
+            init["params"] = to_np(params)
+            return params
+
+        mp.setattr(jsystem.MultiTaskSystem, "init_params", capture)
+        jres = jmain.main(overrides(root, tmp["jax"]))
+
+        def jax_init(self, generator):
+            self.load_state({k: v.to(self.device) for k, v in
+                             interop.from_flax(init["params"]).items()})
+            return self.params()
+
+        mp.setattr(tsystem.MultiTaskSystem, "init_params", jax_init)
+        tres = tmain.main(overrides(root, tmp["port"], "device=cpu"))
+        lines = list(handler.lines)
+        # the resume check runs with dropout on, so that the restored
+        # generator state matters
+        drop = ("device=cpu", "model.temporal_pooling.dropout=0.5",
+                f"checkpoint.dir={tmp['resumed']}/ckpt")
+        straight = tmain.main(overrides(root, tmp["straight"], *drop))
+        first = tmain.main(overrides(root, tmp["resumed"], *drop,
+                                     "num_epochs=1", "checkpoint.enable=True"))
+        resumed = tmain.main(overrides(root, tmp["resumed"], *drop,
+                                       "checkpoint.enable=True"))
+    finally:
+        mp.undo()
+        port_logger.removeHandler(handler)
+        port_logger.setLevel(level)
+    return dict(root=root, tmp=tmp, jres=jres, tres=tres, lines=lines,
+                straight=straight, first=first, resumed=resumed)
+
+
+def test_train_losses_and_norms_match_jax(runs):
+    ours = by_epoch(records(runs["tres"]["run_dir"]), "train/")
+    ref = by_epoch(records(runs["jres"]["run_dir"]), "train/")
+    assert sorted(ours) == sorted(ref) == [1, 2]
+    for epoch in ref:
+        assert set(ours[epoch]) == set(ref[epoch])
+        for k, v in ref[epoch].items():
+            np.testing.assert_allclose(ours[epoch][k], v, rtol=1e-4,
+                                       err_msg=f"epoch {epoch} {k}")
+
+
+def test_validation_metrics_match_jax(runs):
+    ours = by_epoch(records(runs["tres"]["run_dir"]), "val/")
+    ref = by_epoch(records(runs["jres"]["run_dir"]), "val/")
+    assert sorted(ours) == sorted(ref) == [1, 2]
+    for epoch in ref:
+        assert set(ours[epoch]) == set(ref[epoch])
+        for k, v in ref[epoch].items():
+            what = f"epoch {epoch} {k}"
+            if k.startswith("val/lta/") and k.endswith("_ed"):
+                assert 0.0 <= ours[epoch][k] <= 1.0, what
+            elif k.endswith(("loss", "calibration_error", "brier_score",
+                             "auroc")):
+                np.testing.assert_allclose(ours[epoch][k], v, rtol=1e-4,
+                                           err_msg=what)
+            else:
+                assert ours[epoch][k] == v, what
+
+
+def test_artifact_matches_jax(runs):
+    tmp = runs["tmp"]
+    assert runs["tres"]["artifact"] == runs["jres"]["artifact"] == ARTIFACT
+    ours, ours_meta = jckpt.load_artifact(f"{tmp['port']}/artifacts", ARTIFACT)
+    ref, ref_meta = jckpt.load_artifact(f"{tmp['jax']}/artifacts", ARTIFACT)
+    assert ours_meta == ref_meta == {"tasks": ["ar", "lta", "pnr"],
+                                     "num_epochs": 2}
+    assert int(ours.pop("epoch")) == int(ref.pop("epoch")) == 2
+    ours_t, ref_t = interop.from_flax(ours), interop.from_flax(ref)
+    assert set(ours_t) == set(ref_t)
+    for name, v in ref_t.items():
+        np.testing.assert_allclose(ours_t[name].numpy(), v.numpy(), **TOL,
+                                   err_msg=name)
+    # the port's own reader gives the in-memory parameters bit for bit
+    loaded, _ = tckpt.load_artifact(f"{tmp['port']}/artifacts", ARTIFACT)
+    loaded.pop("epoch")
+    params = runs["tres"]["system"].params()
+    for name, v in interop.from_flax(loaded).items():
+        assert torch.equal(v, params[name].detach()), name
+
+
+def test_log_lines(runs):
+    text = "\n".join(runs["lines"])
+    for needle in ("Epoch   1/2 (15 steps", "Epoch   2/2 (15 steps",
+                   " ## Recognition ## ", " ## LTA ## ", " ## PNR ## ",
+                   "Verbs Top-1:", "localization_error:", "verbs_ed:",
+                   "Saved artifact MTL_ar-lta-pnr"):
+        assert needle in text, needle
+
+
+def test_resumed_run_equals_straight_run(runs):
+    assert runs["first"]["start_epoch"] == 1
+    assert runs["resumed"]["start_epoch"] == 2
+    assert [s["epoch"] for s in runs["resumed"]["epochs"]] == [2]
+    a = runs["straight"]["system"].params()
+    b = runs["resumed"]["system"].params()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    sa, sb = runs["straight"]["opt_state"], runs["resumed"]["opt_state"]
+    assert sa.count == sb.count == 30
+    for name in sa.mu:
+        assert torch.equal(sa.mu[name], sb.mu[name]), name
+        assert torch.equal(sa.nu[name], sb.nu[name]), name
+    la = by_epoch(records(runs["straight"]["run_dir"]), "train/")[2]
+    lb = by_epoch(records(runs["resumed"]["run_dir"]), "train/")[2]
+    assert la == lb
+
+
+def test_unsupported_settings_raise(runs, monkeypatch):
+    base = overrides(runs["root"], runs["tmp"]["port"], "device=cpu",
+                     "num_epochs=1", "save_model=False")
+    for extra, match in ((["parallel.data=2"], "Queue 1 item 14"),
+                         (["parallel.multihost=True"], "Queue 1 item 14"),
+                         (["log_per_layer_norms=True"], "Queue 1 item 7"),
+                         (["log_histograms_every=1"], "Queue 1 item 7"),
+                         (["log_feature_plots=True"], "Queue 1 item 13"),
+                         (["loader_processes=2"], "Queue 1 item 8")):
+        with pytest.raises(NotImplementedError, match=match):
+            tmain.main(base + extra)
+    # the configs' device=tpu means the card; without one it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmain.main(base + ["device=tpu"])
+
+
+def test_profile_trace_and_confusion_tables(runs, tmp_path):
+    import glob
+    trace = tmp_path / "trace"
+    result = tmain.main(overrides(runs["root"], str(tmp_path), "device=cpu",
+                                  "num_epochs=1", "save_model=False",
+                                  f"profile_dir={trace}",
+                                  "log_confusion_matrices=True"))
+    with open(trace / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    tables = glob.glob(osp.join(result["run_dir"], "confusion_ar_ep1.json"))
+    with open(tables[0]) as f:
+        got = json.load(f)
+    assert set(got) == {"verbs", "nouns"}
+    assert set(got["verbs"]) == {"top2_confusion", "class_acc"}
+
+
+def test_cli_runs_the_verify_phase1_command(ego4d_root, tmp_path):
+    """The phase-1 command of the repository's verify notes with
+    ``device=cpu``, as a user types it; JAX's ``load_artifact`` reads the
+    artifact."""
+    cmd = [sys.executable, "-m", "egopack_torch.main_temporal", "seed=1", "k=1",
+           "num_epochs=7", "batch_size=4", "num_workers=0",
+           "model.hidden_size=32", "model.temporal_pooling.hidden_size=32",
+           "oscc_feat_size=32", "save_model=True", "enabled_tasks=[ar,lta,pnr]",
+           "validation_split=val", f"dataset_recognition.root={ego4d_root}",
+           f"dataset_oscc.root={ego4d_root}", f"dataset_lta.root={ego4d_root}",
+           f"dataset_pnr.root={ego4d_root}",
+           f"artifact_dir={tmp_path}/artifacts",
+           f"output_dir={tmp_path}/outputs", "parallel.data=1", "device=cpu"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    log = proc.stderr
+    assert log.count("Epoch ") == 7 and log.count(" ## PNR ## ") == 6
+    assert "Saved artifact MTL_ar-lta-pnr" in log
+    payload, meta = jckpt.load_artifact(f"{tmp_path}/artifacts", ARTIFACT)
+    assert meta == {"tasks": ["ar", "lta", "pnr"], "num_epochs": 7}
+    assert int(payload["epoch"]) == 7
+    for key in ("temporal_graph", "task/recognition", "task/oscc", "task/lta",
+                "task/pnr"):
+        assert key in payload, key

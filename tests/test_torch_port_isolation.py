@@ -24,7 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(["egopack_torch"] + [
     m.name for m in pkgutil.walk_packages(egopack_torch.__path__,
                                           "egopack_torch.")]) + ["chip_smoke"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "egopack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "egopack_tpu", "yaml",
+             "msgpack")
 
 _PROBE = """
 import importlib, json, sys
