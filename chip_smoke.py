@@ -36,7 +36,23 @@ Phases, any failure exits non-zero and prints no result:
              for bit to the trained parameters; then a second call with
              num_epochs=4 that resumes at epoch 4. Prints ms per optimizer
              step over epochs 2-3 (wall clock, data loading included).
-5. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
+5. egopack_driver - the phase-2 CLI (``egopack_torch.main_egopack.main``)
+             at full width from the driver's MTL_ar-lta-pnr artifact, on a
+             second fixture of the same widths with 240 OSCC windows (15
+             OSCC steps an epoch at batch 16): novel OSCC, GraphONE k=8
+             depth 3, fused Adam at 1e-6, head dropout 0.5, 3 epochs with
+             checkpoints and the MTL_oscc artifact, counts zeroed just
+             before and read just after. Finite epoch losses, one fused_adam
+             launch per optimizer step, one cosine_knn launch per optimizer
+             step and per OSCC validation batch, an OSCC meter block, the
+             artifact's banks and masks equal to the banks built; then a
+             second call with num_epochs=4 that resumes at epoch 4. Prints
+             ms per optimizer step over epochs 2-3, the wait for data and
+             the prototype sweep's seconds.
+6. evaluate - ``egopack_torch.evaluate`` cold on MTL_oscc: the driver's
+             last OSCC validation again (accuracy equal, loss within rtol
+             1e-5), one cosine_knn launch per validation batch.
+7. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
              phase-1 state of the driver's artifact (``load_artifact``, then
              ``interop.from_flax``) merged into the phase-2 system, banks
              built on the card from 8 seeded AR batches of 256 clips, then 3
@@ -46,7 +62,7 @@ Phases, any failure exits non-zero and prints no result:
              heads and the banks bit-identical. One step with the plain kNN
              from the same state, the eval step, and a small phase-2 model on
              the card against the CPU.
-6. numbers - ms per step; each kernel's device time, launches and bound; the
+8. numbers - ms per step; each kernel's device time, launches and bound; the
              plain versions' times; one library call each as yardstick (timed
              only; the port never calls it): ``torch.optim.Adam(fused=True)``
              and ``torch.topk`` over the masked ``1 - bmm``. The card's
@@ -78,7 +94,9 @@ from egopack_torch.device import make_generator
 from egopack_torch.entry import (ACTIVE, AUX_TASKS, N_NOUNS, N_VERBS,
                                  build_egopack_step, build_mtl_step,
                                  build_system, synthetic_batches)
+from egopack_torch.evaluate import main as evaluate_main
 from egopack_torch.io import native
+from egopack_torch.main_egopack import main as egopack_main
 from egopack_torch.main_temporal import main as train_main
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
@@ -106,6 +124,9 @@ KNN_PASSES = ("knn_partial", "knn_merge")  # the kernels of one kNN call
 # of 16 an epoch); 64 OSCC windows give about 32 PNR clips (2 batches)
 DRIVER_VIDEOS, DRIVER_OSCC, DRIVER_EPOCHS = 8, 64, 3
 ARTIFACT = "MTL_ar-lta-pnr"
+# the phase-2 driver's fixture: 240 OSCC windows a split give 15 optimizer
+# steps and 15 validation batches of 16 an epoch
+EGOPACK_OSCC, EGOPACK_ARTIFACT = 240, "MTL_oscc"
 
 
 def log(msg: str) -> None:
@@ -511,6 +532,150 @@ def phase_driver(tmp: str, card: str):
     return interop.from_flax(payload), launches, steps, ms_step
 
 
+def egopack_overrides(root: str, tmp: str, epochs: int):
+    """Novel OSCC from the driver's artifact at full width (GraphONE k=8,
+    depth 3, hidden 1024, no residual; fused Adam at 1e-6; head dropout
+    0.5; backbone trained in eval mode; late fusion)."""
+    return ["k=1", "batch_size=16", "model.hidden_size=1024",
+            "model.temporal_pooling.hidden_size=1024", "enabled_tasks=[oscc]",
+            "enable_graphone=True", f"resume_from={ARTIFACT}", "graphone.k=8",
+            "graphone.depth=3", "graphone.hidden_size=1024",
+            "graphone.residual=False", "optimizer.impl=fused",
+            "optimizer.lr=1e-6", "task_head_dropout=0.5",
+            "backprop_temporal_graph=True", "temporal_graph_train_mode=False",
+            "late_fusion=True", "save_model=True", "checkpoint.enable=True",
+            f"num_epochs={epochs}", "validation_split=val",
+            f"dataset_recognition.root={root}", f"dataset_oscc.root={root}",
+            f"dataset_lta.root={root}", f"dataset_pnr.root={root}",
+            f"artifact_dir={tmp}/artifacts",
+            f"output_dir={tmp}/outputs_egopack",
+            f"checkpoint.dir={tmp}/checkpoints"]
+
+
+def phase_egopack_driver(tmp: str, card: str) -> dict:
+    """The phase-2 CLI at full width from the driver phase's artifact;
+    returns its launch counts, steps, times and the last OSCC
+    validation."""
+    t0 = time.perf_counter()
+    root = generate_ego4d_fixture(f"{tmp}/ego4d_oscc", feature_dim=FEAT,
+                                  n_videos=DRIVER_VIDEOS, n_verbs=N_VERBS,
+                                  n_nouns=N_NOUNS, n_oscc=EGOPACK_OSCC,
+                                  learnable=True)
+    log(f"egopack_driver: fixture of {DRIVER_VIDEOS} videos and "
+        f"{EGOPACK_OSCC} OSCC windows a split, feature_dim {FEAT} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tfa.fused_adam.launches = 0
+    tkt.cosine_knn.launches = 0
+    t0 = time.perf_counter()
+    result = egopack_main(egopack_overrides(root, tmp, DRIVER_EPOCHS))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    adam_launches = tfa.fused_adam.launches
+    knn_launches = tkt.cosine_knn.launches
+    stats = result["epochs"]
+    steps = sum(s["steps"] for s in stats)
+    val_batches = len(result["dsets"]["oscc"]["dl_val"])
+    require([s["epoch"] for s in stats] == list(range(1, DRIVER_EPOCHS + 1)),
+            f"epochs run: {stats}")
+    require(adam_launches == steps and steps > 0,
+            f"fused_adam launched {adam_launches} times in {steps} "
+            "optimizer steps")
+    require(knn_launches == steps + val_batches * DRIVER_EPOCHS,
+            f"cosine_knn launched {knn_launches} times for {steps} optimizer "
+            f"steps and {val_batches} OSCC validation batches in each of "
+            f"{DRIVER_EPOCHS} epochs")
+    with open(f"{result['run_dir']}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r for r in records if "train/oscc/loss" in r]
+    require(len(losses) == DRIVER_EPOCHS, f"{len(losses)} epoch records")
+    for r in losses:
+        for k, v in r.items():
+            if k.startswith("train/"):
+                require(math.isfinite(v), f"epoch {r['step']}: {k} = {v}")
+    val = result["val_metrics"]
+    require(sorted(val) == ["oscc"]
+            and 0.0 <= val["oscc"]["accuracy"] <= 1.0
+            and math.isfinite(val["oscc"]["loss"]), f"meter blocks {val}")
+    payload, meta = load_artifact(f"{tmp}/artifacts", EGOPACK_ARTIFACT)
+    require(meta.get("phase") == "egopack"
+            and meta.get("aux_tasks") == list(AUX_TASKS)
+            and meta.get("tasks") == ["oscc"], f"artifact meta {meta}")
+    banks = result["banks"]
+    for t, b in banks.items():
+        require(torch.equal(torch.tensor(payload["graphone_banks"][t]),
+                            b.values.cpu())
+                and torch.equal(torch.tensor(payload["graphone_bank_masks"][t]),
+                                b.mask.cpu()),
+                f"artifact bank {t} differs from the bank built")
+    timed = [s for s in stats if s["epoch"] >= 2]
+    ms_step = (sum(s["train_s"] for s in timed)
+               / sum(s["steps"] for s in timed) * 1e3)
+    data_ms = (sum(s["data_s"] for s in timed)
+               / sum(s["steps"] for s in timed) * 1e3)
+    bank = banks["ar"]
+    last = {k: round(v, 6) for k, v in losses[-1].items()
+            if k.startswith("train/")}
+    log(f"egopack_driver: banks of {bank.num_valid} prototypes (P_pad "
+        f"{bank.values.shape[0]}) built in {result['sweep_s']!r} s; "
+        f"{DRIVER_EPOCHS} epochs, {steps} optimizer steps in {run_s:.1f} s; "
+        f"last epoch {json.dumps(last)}; OSCC accuracy "
+        f"{val['oscc']['accuracy']!r}, loss {val['oscc']['loss']!r}")
+    log(f"egopack_driver: fused_adam launches {adam_launches} in {steps} "
+        f"optimizer steps; cosine_knn launches {knn_launches} = {steps} "
+        f"steps + {val_batches} OSCC validation batches x {DRIVER_EPOCHS} "
+        f"epochs; artifact {EGOPACK_ARTIFACT} banks and masks equal to the "
+        f"banks built")
+    log(f"egopack_driver: {ms_step!r} ms per optimizer step over epochs 2-"
+        f"{DRIVER_EPOCHS} (wall clock, data loading included; "
+        f"{[round(s['train_s'], 3) for s in timed]} s for "
+        f"{[s['steps'] for s in timed]} steps), of which {data_ms!r} ms "
+        f"waiting for data ({[round(s['data_s'], 3) for s in timed]} s); "
+        f"prototype sweep {result['sweep_s']!r} s; on {card}")
+    again = egopack_main(egopack_overrides(root, tmp, DRIVER_EPOCHS + 1))
+    require(again["start_epoch"] == DRIVER_EPOCHS + 1
+            and [s["epoch"] for s in again["epochs"]] == [DRIVER_EPOCHS + 1],
+            f"the second call started at epoch {again['start_epoch']}")
+    log(f"egopack_driver: a second call with num_epochs={DRIVER_EPOCHS + 1} "
+        f"resumed at epoch {again['start_epoch']} from the full-state "
+        f"checkpoint (sweep {again['sweep_s']!r} s)")
+    return {"root": root, "adam_launches": adam_launches,
+            "knn_launches": knn_launches, "steps": steps,
+            "val_batches": val_batches, "ms_step": ms_step,
+            "data_ms": data_ms, "sweep_s": result["sweep_s"],
+            "last_val": again["val_metrics"]["oscc"]}
+
+
+def phase_evaluate(tmp: str, ego: dict) -> int:
+    """``egopack_torch.evaluate`` cold on the phase-2 artifact; returns its
+    kNN launches."""
+    tfa.fused_adam.launches = 0
+    tkt.cosine_knn.launches = 0
+    out = f"{tmp}/metrics.json"
+    overrides = [o for o in egopack_overrides(ego["root"], tmp, 1)
+                 if not o.startswith("resume_from=")]
+    metrics = evaluate_main(overrides + [f"resume_from={EGOPACK_ARTIFACT}",
+                                         f"output={out}"])
+    torch.cuda.synchronize()
+    knn_launches = tkt.cosine_knn.launches
+    require(knn_launches == ego["val_batches"]
+            and tfa.fused_adam.launches == 0,
+            f"evaluate launched cosine_knn {knn_launches} times for "
+            f"{ego['val_batches']} validation batches")
+    with open(out) as f:
+        written = json.load(f)
+    cold, last = metrics["oscc"], ego["last_val"]
+    require(sorted(metrics) == ["oscc"] and written == metrics,
+            f"evaluate metrics {metrics}")
+    require(cold["accuracy"] == last["accuracy"]
+            and math.isclose(cold["loss"], last["loss"], rel_tol=1e-5),
+            f"cold OSCC {cold} against the driver's last validation {last}")
+    log(f"evaluate: {EGOPACK_ARTIFACT} cold: OSCC accuracy "
+        f"{cold['accuracy']!r}, loss {cold['loss']!r} (the driver's last "
+        f"validation: {last['accuracy']!r}, {last['loss']!r}); cosine_knn "
+        f"launches {knn_launches} in {ego['val_batches']} validation batches")
+    return knn_launches
+
+
 def phase_numbers(mtl, dev, card: str) -> dict:
     """The kernel (f32 and bf16 moments), the plain version and the library
     call on the same full-width trainable tensors, each timed twice in turns
@@ -850,6 +1015,8 @@ def run(dev, card: str):
     phase_small_vs_cpu(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         loaded, drv_launches, drv_steps, drv_ms = phase_driver(tmp, card)
+        ego_drv = phase_egopack_driver(tmp, card)
+        eval_launches = phase_evaluate(tmp, ego_drv)
     ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(
         mtl, loaded, dev, card)
     del loaded
@@ -858,6 +1025,7 @@ def run(dev, card: str):
     knn_nums = phase_knn_numbers(main_knn, dev, card)
     del ego
 
+    # launches on each path, counted from 0 just before it
     kernels = [{
         "name": "fused_adam", "route": "cuda",
         "source": "egopack_torch/ops/csrc/fused_adam.cu",
@@ -865,19 +1033,31 @@ def run(dev, card: str):
         "launches": launches, "max_abs_err": adam_err, "ms": nums["ms"],
         "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
+        "launches_by_path": {"train": launches, "driver": drv_launches,
+                             "egopack_driver": ego_drv["adam_launches"],
+                             "evaluate": 0, "egopack": ego_steps},
     }, {
         "name": "cosine_knn", "route": "cuda",
         "source": "egopack_torch/ops/csrc/knn_topk.cu",
         "replaces": "egopack_tpu/ops/pallas/knn_topk.py:123",
         "launches": knn_launches, "max_abs_err": knn_err_max,
         **knn_nums["main"],
+        "launches_by_path": {"egopack_driver": ego_drv["knn_launches"],
+                             "evaluate": eval_launches,
+                             "egopack": knn_launches},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
-               f"steps of the phase-1 driver, {drv_ms!r} ms per step), "
+               f"steps of the phase-1 driver, {drv_ms!r} ms per step; "
+               f"{ego_drv['adam_launches']} in {ego_drv['steps']} steps of "
+               f"the phase-2 driver, {ego_drv['ms_step']!r} ms per step), "
                f"cosine_knn ({knn_launches} launches "
                f"in {ego_steps} phase-2 steps; {ego_ms!r} ms/step; "
-               f"{knn_swaps} near-tie swaps in the kernel checks)")
+               f"{ego_drv['knn_launches']} in the phase-2 driver's "
+               f"{ego_drv['steps']} steps and "
+               f"{ego_drv['val_batches'] * DRIVER_EPOCHS} validation batches; "
+               f"{eval_launches} in evaluate's {ego_drv['val_batches']} "
+               f"batches; {knn_swaps} near-tie swaps in the kernel checks)")
     return kernels, summary
 
 

@@ -69,14 +69,21 @@ def instantiate(cfg: Any, *args: Any, _recursive_: bool = True,
 def temporal_graph(input_size: int, hidden_size: int = 1024, depth: int = 3,
                    pre_dropout: float = 0.0,
                    temporal_pooling: Optional[Any] = None,
-                   num_segments: int = 8, device=None):
+                   num_segments: int = 8, propagate_dtype: Optional[Any] = None,
+                   device=None):
     """The backbone from its config node. The JAX ``TemporalGraph`` takes
     its pooling as a config node and instantiates it with
     ``(input_size, hidden_size, num_segments)``
     (``egopack_tpu/models/backbone.py:44-52``); the port's takes a module,
-    built here the same way."""
+    built here the same way. ``propagate_dtype`` (the JAX package's bf16
+    activation path, ``egopack_tpu/models/backbone.py:42-62``) is not
+    ported yet and raises."""
     from ..models.backbone import TemporalGraph
 
+    if propagate_dtype is not None:
+        raise NotImplementedError(
+            f"model.propagate_dtype={propagate_dtype!r} is not ported yet; "
+            "see ROADMAP.md, Queue 1 item 5")
     if isinstance(temporal_pooling, dict):
         temporal_pooling = instantiate(temporal_pooling, input_size,
                                        hidden_size, num_segments,

@@ -41,7 +41,7 @@ PHASE2_AUX = {"ar": ("lta", "pnr"), "oscc": ("ar", "lta", "pnr"),
 def build_system(hidden: int, tp_hidden: int, feat_dim: int,
                  num_segments: int = 3, tp_dropout: float = 0.5, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 fused_layout: str = "auto", phase2: bool = False,
+                 fused_layout: Optional[str] = None, phase2: bool = False,
                  device: DeviceLike = None) -> MultiTaskSystem:
     """Backbone (TRN pooling + 3 SAGE layers) and the four heads; with
     ``phase2`` each head also carries its aux classifier set. Parameters are
@@ -137,7 +137,8 @@ class MTLStep:
 def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
                    *, impl: str = "fused", moments_dtype: str = "float32",
                    compute_dtype: torch.dtype = torch.float32,
-                   fused_layout: str = "auto", tp_dropout: float = 0.5,
+                   fused_layout: Optional[str] = None,
+                   tp_dropout: float = 0.5,
                    active: Tuple[str, ...] = ACTIVE, log_norms: bool = True,
                    seed: int = 0, device: DeviceLike = None) -> MTLStep:
     """The phase-1 AR+LTA+PNR train step at the bench configuration

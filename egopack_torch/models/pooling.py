@@ -5,7 +5,8 @@ Flattens the S segment features of each node and runs a 3-layer MLP
 (Linear -> LN -> ReLU -> Dropout twice, then a final Linear), as the
 reference ``models/temporal_pooling/trn_pooling.py:10-45`` does. The optional
 per-frame encodings of the JAX base class (learnt, positional, temporal) are
-not ported yet; the reference experiments never enable them.
+not ported yet (ROADMAP.md, Queue 1 item 4); the reference experiments never
+enable them, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -23,9 +24,14 @@ class TRNPooling(nn.Module):
     """(B, N, S, D) -> (B, N, output_size)."""
 
     def __init__(self, input_size: int, output_size: int, num_segments: int,
-                 hidden_size: int = 1024, dropout: float = 0.0, *,
+                 hidden_size: int = 1024, dropout: float = 0.0,
+                 encoding: Optional[str] = None, *,
                  device: DeviceLike = None):
         super().__init__()
+        if encoding is not None:
+            raise NotImplementedError(
+                f"model.temporal_pooling.encoding={encoding!r} is not ported "
+                "yet; see ROADMAP.md, Queue 1 item 4")
         self.input_size = input_size
         self.num_segments = num_segments
         self.dropout = dropout

@@ -5,8 +5,10 @@
    ``<artifact_dir>/<name>/checkpoint.msgpack`` and ``meta.json``, named
    ``MTL_<sorted tasks>`` as in the reference (``main_temporal.py:159``).
    The payload is the flax parameter tree (``interop.to_flax``) plus
-   ``epoch``, written by ``msgpack_codec`` in the bytes flax writes, so
-   each package reads the other's artifacts. A name already taken keeps
+   ``epoch`` (phase 2: plus the prototype banks and their masks), written
+   by ``msgpack_codec`` in the bytes flax writes, so each package reads
+   the other's artifacts; ``unpack_artifact`` splits one for a cold
+   evaluation. A name already taken keeps
    its previous contents as ``checkpoint_v<n>.msgpack`` and
    ``meta_v<n>.json``.
 2. **Mid-run resume**: the full train state (parameters, Adam moments and
@@ -23,8 +25,10 @@ import os.path as osp
 import re
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from . import msgpack_codec
 
 logger = logging.getLogger(__name__)
@@ -73,6 +77,51 @@ def load_artifact(artifact_dir: str,
         with open(meta_path) as f:
             meta = json.load(f)
     return payload, meta
+
+
+def unpack_artifact(payload: Dict[str, Any], meta: Dict[str, Any], cfg,
+                    device: DeviceLike = None):
+    """Split a loaded artifact into its parameter overlay and its phase-2
+    extras (egopack_tpu/train/checkpoint.py:100-150): pops ``epoch``, the
+    banks, their masks and ``graphone`` from ``payload``, which is left as
+    the flax tree of the system's parameters.
+
+    Returns ``(phase2, banks, graphone, aux_tasks, late_fusion, extra)``:
+    for a phase-2 artifact the banks as ``PrototypeBank`` on ``device``, a
+    ``GraphONE`` from ``meta["graphone"]`` (zeros until its parameters are
+    loaded), and ``extra``, the flax subtrees to merge over the system's
+    (``graphone``; ``graphone_banks`` when the banks trained); for a
+    phase-1 artifact ``(False, None, None, (), late_fusion, {})``. The port
+    runs on one card, so the banks are never sharded."""
+    from ..config import to_container
+    from ..models.graphone import GraphONE, PrototypeBank
+
+    dev = resolve_device(device)
+    payload.pop("epoch", None)
+    bank_vals = payload.pop("graphone_banks", None)
+    bank_masks = payload.pop("graphone_bank_masks", None)
+    gparams = payload.pop("graphone", None)
+    late_fusion = bool(meta.get("late_fusion", cfg.late_fusion))
+    if not (meta.get("phase") == "egopack" or gparams is not None):
+        return False, None, None, (), late_fusion, {}
+    if bank_vals is None or bank_masks is None:
+        raise ValueError(
+            "EgoPack artifact lacks prototype banks; it predates the "
+            "complete phase-2 artifact format and cannot be reloaded cold")
+    aux_tasks = tuple(meta.get("aux_tasks") or sorted(bank_vals))
+    banks = {t: PrototypeBank(
+        torch.as_tensor(np.array(bank_vals[t], np.float32), device=dev),
+        torch.as_tensor(np.array(bank_masks[t], bool), device=dev))
+        for t in bank_vals}
+    gcfg = dict(meta.get("graphone") or to_container(cfg.graphone))
+    graphone = GraphONE(task_labels=aux_tasks,
+                        features_size=cfg.model.hidden_size, **gcfg,
+                        device=dev)
+    extra: Dict[str, Any] = {"graphone": gparams}
+    if not gcfg.get("freeze", True):
+        # trainable banks: the trained values are parameters too
+        extra["graphone_banks"] = dict(bank_vals)
+    return True, banks, graphone, aux_tasks, late_fusion, extra
 
 
 def merge_loaded_params(params: State, loaded: State) -> State:

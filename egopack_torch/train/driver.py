@@ -1,18 +1,22 @@
-"""The phase-1 training driver (the port's counterpart of
-``egopack_tpu/train/driver.py:train_mtl`` and the pieces it uses).
+"""The training drivers: phase-1 multi-task pretraining and phase-2 EgoPack
+(the port's counterparts of ``egopack_tpu/train/driver.py:train_mtl`` and
+``train_egopack`` and the pieces they share).
 
-Reference ``main_temporal.py:137-427`` on one card: the four task datasets
-and loaders, the multi-task system built from the config, multiloader
-epochs of ``steps_per_call`` step groups, per-epoch loss and norm records
-in ``metrics.jsonl``, validation meters in the last five epochs, optional
-full-state checkpoints, and at the end the ``MTL_<sorted tasks>`` artifact
-in the JAX package's format.
+Reference ``main_temporal.py:137-427`` and ``main_egopack.py:162-464`` on
+one card: the four task datasets and loaders, the multi-task system built
+from the config, multiloader epochs of ``steps_per_call`` step groups,
+per-epoch loss and norm records in ``metrics.jsonl``, validation meters,
+optional full-state checkpoints, and at the end the
+``<prefix>_<sorted tasks>`` artifact in the JAX package's format. Phase 2
+merges a phase-1 artifact, builds the prototype banks from the AR train
+set, trains the novel task's head and GraphONE over them, and validates
+every epoch.
 
 Randomness comes from one CPU ``torch.Generator`` per run, seeded by
-``seed``: the parameters' init seed first, then two seeds per epoch (the
-train steps' dropout, the LTA validation samples), each for a generator on
-the run's device. A checkpoint holds that generator's state, so a resumed
-run draws what the straight run draws.
+``seed``: the parameters' init seed first (phase 2: then GraphONE's), then
+two seeds per epoch (the train steps' dropout, the LTA validation samples),
+each for a generator on the run's device. A checkpoint holds that
+generator's state, so a resumed run draws what the straight run draws.
 """
 
 from __future__ import annotations
@@ -35,17 +39,28 @@ from ..device import make_generator, resolve_device
 from ..eval.meters import build_meter_for_dataset
 from ..eval.validate import to_host, validate, validate_lta, validate_pnr
 from ..io import native
+from ..models.graphone import GraphONE, build_prototypes, make_prototype_step
 from ..models.heads import LTATask, OSCCTask, PNRTask, RecognitionTask
 from ..utils.logging import RunLogger, format_run_name, setup_logging
 from . import optim as topt
-from .checkpoint import (latest_state, restore_state, save_artifact,
-                         save_state)
-from .system import CKPT_KEYS, MultiTaskSystem, TaskSetup
+from .checkpoint import (latest_state, load_artifact, merge_loaded_params,
+                         restore_state, save_artifact, save_state)
+from .system import CKPT_KEYS, Banks, MultiTaskSystem, TaskSetup
 
 logger = logging.getLogger(__name__)
 
 TASKS = ("ar", "oscc", "lta", "pnr")
 TITLES = {"ar": "Recognition", "oscc": "OSCC", "lta": "LTA", "pnr": "PNR"}
+# aux-task sets per primary head in phase 2
+# (egopack_tpu/train/driver.py:42-47, reference main_egopack.py:268-280)
+PHASE2_AUX = {
+    "ar": ("oscc", "lta", "pnr"),
+    "oscc": ("ar", "lta", "pnr"),
+    "lta": ("ar", "oscc", "pnr"),
+    "pnr": ("ar", "oscc", "lta"),
+}
+# the prototype sweep's batch (egopack_tpu/train/driver.py:580-589)
+PROTO_BATCH = 256
 
 
 def config_device(name: Any) -> torch.device:
@@ -122,30 +137,39 @@ def build_datasets(cfg) -> Dict[str, Dict[str, Any]]:
     return out
 
 
-def build_system(cfg, dsets, device: torch.device) -> MultiTaskSystem:
-    """The phase-1 system at the config's widths: ``model.*`` (hidden size,
-    depth, pooling), ``oscc_feat_size``, ``task_dropout``,
-    ``task_head_dropout``, ``compute_dtype``, ``fused_layout`` (the
-    ``EGOPACK_FUSED_LAYOUT`` environment variable wins); class counts and
-    graph specs from the datasets. Parameters are zeros until
-    ``init_params``."""
+def build_system(cfg, dsets, device: torch.device,
+                 phase2: bool = False) -> MultiTaskSystem:
+    """The system at the config's widths: ``model.*`` (hidden size, depth,
+    pooling), ``oscc_feat_size``, ``task_dropout``, ``task_head_dropout``,
+    ``compute_dtype``, ``fused_layout`` (the ``EGOPACK_FUSED_LAYOUT``
+    environment variable wins); class counts and graph specs from the
+    datasets. ``phase2``: every head carries the aux classifiers of
+    :data:`PHASE2_AUX`, and OSCC projects to ``hidden`` and averages its
+    logits (egopack_tpu/train/driver.py:116-164). Parameters are zeros
+    until ``init_params``."""
     hidden = cfg.model.hidden_size
     backbone = instantiate(cfg.model, _recursive_=False,
                            input_size=dsets["ar"]["train"].features_size,
                            num_segments=cfg.dataset_recognition.num_segments,
                            device=device)
+    aux = PHASE2_AUX if phase2 else {t: None for t in TASKS}
     common = dict(input_size=hidden, dropout=cfg.task_dropout,
                   head_dropout=cfg.task_head_dropout, device=device)
     heads = {
         "ar": RecognitionTask(name_="ar", features_size=hidden,
                               heads=dsets["ar"]["train"].num_class_labels,
-                              **common),
-        # phase-1 OSCC projects to oscc_feat_size (main_temporal.py:253)
-        "oscc": OSCCTask(name_="oscc", features_size=cfg.oscc_feat_size,
-                         loss_func=cfg.oscc_loss, **common),
+                              aux_tasks=aux["ar"], **common),
+        # phase-1 OSCC projects to oscc_feat_size (main_temporal.py:253),
+        # phase-2 to hidden with averaged logits (main_egopack.py:271-272)
+        "oscc": OSCCTask(name_="oscc",
+                         features_size=hidden if phase2 else cfg.oscc_feat_size,
+                         loss_func=cfg.oscc_loss, aux_tasks=aux["oscc"],
+                         average_logits=phase2, **common),
         "lta": LTATask(name_="lta", features_size=hidden,
-                       heads=dsets["lta"]["train"].num_class_labels, **common),
-        "pnr": PNRTask(name_="pnr", features_size=hidden, **common),
+                       heads=dsets["lta"]["train"].num_class_labels,
+                       aux_tasks=aux["lta"], **common),
+        "pnr": PNRTask(name_="pnr", features_size=hidden, aux_tasks=aux["pnr"],
+                       **common),
     }
     weights = task_weights_from_cfg(cfg)
     tasks = {
@@ -164,6 +188,32 @@ def build_system(cfg, dsets, device: torch.device) -> MultiTaskSystem:
                            fused_layout=layout, device=device)
 
 
+def merge_flax(system: MultiTaskSystem, tree: Dict[str, Any]) -> None:
+    """Load a flax parameter tree into ``system`` with
+    ``load_state_dict(strict=False)`` semantics (``merge_loaded_params``):
+    the leaves the system names are taken, its own values stay elsewhere."""
+    system.load_state(merge_loaded_params(
+        system.model.state_dict(),
+        {n: v.to(system.device)
+         for n, v in interop.from_flax(tree).items()}))
+
+
+def make_eval_steps(system: MultiTaskSystem, task_weights,
+                    aux_tasks: Sequence[str] = (),
+                    graphone: Optional[GraphONE] = None,
+                    late_fusion: bool = True) -> Dict[str, Callable]:
+    """Each task's eval step. With ``graphone`` (phase 2) the active tasks
+    interact with the other aux tasks' banks
+    (egopack_tpu/train/driver.py:659-665)."""
+    steps = {}
+    for t in TASKS:
+        ego = graphone is not None and task_weights[t] > 0
+        steps[t] = system.make_eval_step(
+            t, aux=tuple(a for a in aux_tasks if a != t) if ego else (),
+            graphone=graphone if ego else None, late_fusion=late_fusion)
+    return steps
+
+
 def make_run_logger(cfg) -> RunLogger:
     return RunLogger(cfg.output_dir,
                      format_run_name(cfg.wandb_name_pattern,
@@ -178,25 +228,28 @@ def draw_seed(run_gen: torch.Generator) -> int:
 
 def _run_validation(cfg, system: MultiTaskSystem, dsets, task_weights,
                     epoch: int, run_logger: RunLogger, eval_steps,
-                    generator: torch.Generator) -> Dict[str, Dict[str, Any]]:
-    """The validation block (reference main_temporal.py:345-404): one meter
-    per enabled task; returns ``{task: meter.get_logs()}``."""
+                    generator: torch.Generator, banks: Optional[Banks] = None,
+                    force_all: bool = False) -> Dict[str, Dict[str, Any]]:
+    """The validation block (reference main_temporal.py:345-404,
+    egopack_tpu/train/driver.py:204-250): one meter per enabled task, or
+    per task with ``force_all``; ``banks`` go to every eval step. Returns
+    ``{task: meter.get_logs()}``."""
     metrics: Dict[str, Dict[str, Any]] = {}
     for name in TASKS:
-        if task_weights[name] <= 0:
+        if not (force_all or task_weights[name] > 0):
             continue
         meter = build_meter_for_dataset(
             dsets[name]["val"],
             log_confusion=bool(cfg.get("log_confusion_matrices", False)))
         step, loader = eval_steps[name], dsets[name]["dl_val"]
         if name == "lta":
-            validate_lta(step, None, loader, meter,
+            validate_lta(step, banks, loader, meter,
                          system.tasks["lta"].head.generate_from_logits,
                          generator, system.device)
         elif name == "pnr":
-            validate_pnr(step, None, loader, meter, system.device)
+            validate_pnr(step, banks, loader, meter, system.device)
         else:
-            validate(step, None, loader, meter, name, system.device)
+            validate(step, banks, loader, meter, name, system.device)
         logger.info(" ## %s ## ", TITLES[name])
         for line in meter.print_logs():
             logger.info(line)
@@ -304,11 +357,14 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                 task_weights, active, step_fn: Callable,
                 multi_fn: Optional[Callable], lr_fn, run_gen,
                 run_logger, eval_steps, ckpt_dir: str, start_epoch: int,
-                should_validate: Callable[[int], bool]):
+                should_validate: Callable[[int], bool],
+                banks: Optional[Banks] = None, force_all: bool = False):
     """Multiloader epochs with ``steps_per_call`` groups and a one-by-one
     tail, the per-epoch records, checkpoints and validation
-    (reference main_temporal.py:300-404). The steps' logs stay on the
-    device until the epoch's end. Returns (val_metrics, per-epoch stats)."""
+    (reference main_temporal.py:300-404, main_egopack.py:316-448). With
+    ``banks`` (phase 2) they are the steps' leading extra argument
+    (egopack_tpu/train/driver.py:346). The steps' logs stay on the device
+    until the epoch's end. Returns (val_metrics, per-epoch stats)."""
     spc = int(cfg.get("steps_per_call", 1))
     device = system.device
     x_dtype = torch.bfloat16 if system.compute_dtype == torch.bfloat16 \
@@ -317,6 +373,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
     profiler = _Profiler(cfg.get("profile_dir", None), device)
     val_metrics: Dict[str, Any] = {}
     stats = []
+    extra = () if banks is None else (banks,)
 
     def put(tup):
         return {t: copier.put(b) for t, b in zip(TASKS, tup) if t in active}
@@ -346,16 +403,18 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                 pending.append(batches)
                 if len(pending) < spc:
                     continue
-                logs.append(multi_fn(opt_state, pending, generator, lr))
+                logs.append(multi_fn(opt_state, *extra, pending, generator,
+                                     lr))
                 pending = []
                 n_steps += spc
             else:
-                logs.append(step_fn(opt_state, batches, generator, lr))
+                logs.append(step_fn(opt_state, *extra, batches, generator,
+                                    lr))
                 n_steps += 1
         if profiler.prof is not None:  # short epoch: close the trace
             profiler.stop()
         for batches in pending:  # the tail, one step at a time
-            logs.append(step_fn(opt_state, batches, generator, lr))
+            logs.append(step_fn(opt_state, *extra, batches, generator, lr))
             n_steps += 1
         norm_keys = sorted({k for l in logs for k in l
                             if k.startswith(("grad_norm", "param_norm"))})
@@ -376,7 +435,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
         if should_validate(epoch):
             val_metrics = _run_validation(cfg, system, dsets, task_weights,
                                           epoch, run_logger, eval_steps,
-                                          val_generator)
+                                          val_generator, banks, force_all)
     return val_metrics, stats
 
 
@@ -421,7 +480,7 @@ def train_mtl(cfg) -> Dict[str, Any]:
     multi_fn = (system.make_train_step_multi(optimizer, active, spc,
                                              log_norms=log_norms)
                 if spc > 1 else None)
-    eval_steps = {t: system.make_eval_step(t) for t in TASKS}
+    eval_steps = make_eval_steps(system, task_weights)
 
     start_epoch = _maybe_resume(cfg, ckpt_dir, system, opt_state, run_gen)
     val_metrics, stats = _run_epochs(
@@ -444,6 +503,145 @@ def train_mtl(cfg) -> Dict[str, Any]:
         save_artifact(cfg.artifact_dir, name, payload,
                       meta={"tasks": list(active),
                             "num_epochs": cfg.num_epochs})
+        logger.info("Saved artifact %s", name)
+        result["artifact"] = name
+    run_logger.close()
+    return result
+
+
+def _prototype_banks(cfg, system: MultiTaskSystem, dsets,
+                     aux_tasks: Sequence[str]) -> Banks:
+    """The aux tasks' prototype banks from one sweep over the AR train set
+    at batch 256, unshuffled, with its padded tail kept
+    (egopack_tpu/train/driver.py:580-597; on one card the data-axis
+    rounding of the batch is 1). The batches are copied to the device a
+    few ahead of the sweep; the sums accumulate in float64 on the host."""
+    loader = build_dataloader(dsets["ar"]["train"], PROTO_BATCH, False,
+                              cfg.num_workers, False, seed=cfg.seed)
+    n_verbs, n_nouns = dsets["ar"]["train"].num_class_labels
+    copier = DeviceCopier(system.device)
+    step = make_prototype_step(system, tuple(aux_tasks), n_verbs, n_nouns)
+    return build_prototypes(step, device_prefetch(iter(loader), copier.put,
+                                                  copier.ready),
+                            n_verbs, n_nouns, n_tasks=len(aux_tasks),
+                            device=system.device)
+
+
+def train_egopack(cfg) -> Dict[str, Any]:
+    """Phase-2 EgoPack novel-task training (reference main_egopack.py;
+    egopack_tpu/train/driver.py:544-723) on the config's ``device``."""
+    setup_logging()
+    if not cfg.enable_graphone:
+        raise SystemExit("Invalid configuration (enable_graphone=False). "
+                         "Aborting!")
+    check_supported(cfg)
+    if not cfg.resume_from:
+        raise ValueError("EgoPack phase requires resume_from=<MTL artifact>")
+    device = config_device(cfg.get("device", "cuda"))
+    if cfg.checkpoint.get("async_write", False):
+        logger.info("checkpoint.async_write: the port writes checkpoints "
+                    "synchronously")
+    run_logger = make_run_logger(cfg)
+    run_gen = torch.Generator()
+    run_gen.manual_seed(cfg.seed if cfg.seed > 0 else 0)
+
+    task_weights = task_weights_from_cfg(cfg)
+    dsets = build_datasets(cfg)
+    system = build_system(cfg, dsets, device, phase2=True)
+    system.init_params(make_generator(draw_seed(run_gen), device))
+
+    # the phase-1 artifact, merged with strict=False semantics
+    # (main_egopack.py:286-296); its epoch is dropped
+    loaded, _ = load_artifact(cfg.artifact_dir, cfg.resume_from)
+    loaded.pop("epoch", None)
+    merge_flax(system, loaded)
+    logger.info("Resumed from %s", cfg.resume_from)
+
+    # the aux task set is the tasks named in the artifact's reference
+    # (main_egopack.py:300-301)
+    aux_tasks = tuple(t for t in TASKS if t in cfg.resume_from)
+    t0 = time.perf_counter()
+    banks = _prototype_banks(cfg, system, dsets, aux_tasks)
+    sweep_s = time.perf_counter() - t0
+    logger.info("Built prototype banks for %s in %.1fs (%d prototypes)",
+                aux_tasks, sweep_s, next(iter(banks.values())).num_valid)
+
+    freeze = bool(cfg.graphone.get("freeze", True))
+    graphone = GraphONE(task_labels=aux_tasks,
+                        features_size=cfg.model.hidden_size,
+                        **to_container(cfg.graphone), device=device)
+    graphone.reset_parameters(make_generator(draw_seed(run_gen), device))
+    # freeze=False: the bank values join the parameters and the optimizer;
+    # the masks stay as built
+    system.attach_graphone(graphone, None if freeze else banks)
+    if not freeze:
+        logger.warning("GraphONE initialized with trainable prototypes.")
+
+    active = tuple(t for t in TASKS if task_weights[t] > 0)
+    # the phase-2 loss graph: the primary heads and GraphONE (and the
+    # backbone when backprop is on); the detached aux projections and the
+    # other heads stay frozen
+    trainable = [CKPT_KEYS[t] for t in active] + ["graphone"]
+    if not freeze:
+        trainable.append("graphone_banks")
+    if cfg.backprop_temporal_graph:
+        trainable.append("temporal_graph")
+    optimizer = instantiate(cfg.optimizer,
+                            trainable_mask=topt.trainable_mask_fn(trainable))
+    lr_fn = topt.build_lr_fn(cfg.optimizer.lr, instantiate(cfg.lr_scheduler),
+                             cfg.use_warmup)
+    opt_state = optimizer.init(system.params())
+
+    log_norms = cfg.get("log_grad_norms", True)
+    modes = dict(backprop_temporal_graph=cfg.backprop_temporal_graph,
+                 temporal_graph_train_mode=cfg.temporal_graph_train_mode,
+                 late_fusion=cfg.late_fusion)
+    step_fn = system.make_egopack_train_step(optimizer, active, graphone,
+                                             log_norms=log_norms, **modes)
+    spc = int(cfg.get("steps_per_call", 1))
+    multi_fn = (system.make_egopack_train_step_multi(
+        optimizer, active, graphone, spc, log_norms=log_norms, **modes)
+        if spc > 1 else None)
+    eval_steps = make_eval_steps(system, task_weights, aux_tasks, graphone,
+                                 cfg.late_fusion)
+
+    name = artifact_name(cfg, task_weights)
+    ckpt_dir = osp.join(cfg.checkpoint.dir, f"egopack_{name}")
+    start_epoch = _maybe_resume(cfg, ckpt_dir, system, opt_state, run_gen)
+    val_metrics, stats = _run_epochs(
+        cfg, system=system, opt_state=opt_state, dsets=dsets,
+        task_weights=task_weights, active=active, step_fn=step_fn,
+        multi_fn=multi_fn, lr_fn=lr_fn, run_gen=run_gen,
+        run_logger=run_logger, eval_steps=eval_steps, ckpt_dir=ckpt_dir,
+        start_epoch=start_epoch,
+        # phase 2 validates every epoch (main_egopack.py:407-447)
+        should_validate=lambda epoch: True, banks=banks,
+        force_all=bool(cfg.validate_all_tasks))
+    logger.info("Feature gathers so far: %s", native.PATH_CALLS)
+
+    result = {"system": system, "optimizer": optimizer,
+              "opt_state": opt_state, "dsets": dsets, "banks": banks,
+              "graphone": graphone, "aux_tasks": aux_tasks,
+              "val_metrics": val_metrics, "run_dir": run_logger.dir,
+              "start_epoch": start_epoch, "epochs": stats,
+              "sweep_s": sweep_s}
+    if cfg.save_model:
+        # the reference persists graphone.state_dict(), bank embeddings
+        # included (main_egopack.py:453-459); the banks (trained ones for
+        # freeze=False) and their masks make the artifact evaluable cold
+        payload = interop.to_flax(system.params())
+        tasks = list(banks)
+        payload["graphone_bank_masks"] = dict(zip(
+            tasks, to_host([banks[t].mask for t in tasks])))
+        if freeze:  # trained banks are parameters, in the payload already
+            payload["graphone_banks"] = dict(zip(
+                tasks, to_host([banks[t].values for t in tasks])))
+        payload["epoch"] = np.asarray(cfg.num_epochs)
+        save_artifact(cfg.artifact_dir, name, payload,
+                      meta={"tasks": list(active), "phase": "egopack",
+                            "aux_tasks": list(aux_tasks),
+                            "graphone": to_container(cfg.graphone),
+                            "late_fusion": bool(cfg.late_fusion)})
         logger.info("Saved artifact %s", name)
         result["artifact"] = name
     run_logger.close()

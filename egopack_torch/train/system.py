@@ -20,6 +20,7 @@ in place.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -138,14 +139,19 @@ class MultiTaskSystem:
 
     def __init__(self, backbone: TemporalGraph, tasks: Dict[str, TaskSetup],
                  compute_dtype: torch.dtype = torch.float32,
-                 fused_layout: str = "auto", *, device: DeviceLike = None):
+                 fused_layout: Optional[str] = None, *,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.backbone = backbone
         self.tasks = tasks
         self.compute_dtype = compute_dtype
         # "slice": pool fused, then reason per task (reason_multi).
         # "concat": keep the concatenated node set through the whole reason
-        # stack (reason_concat). "auto": by concatenated node count.
+        # stack (reason_concat). "auto": by concatenated node count. None:
+        # the EGOPACK_FUSED_LAYOUT environment variable, else "auto"
+        # (egopack_tpu/train/system.py:164-166).
+        if fused_layout is None:
+            fused_layout = os.environ.get("EGOPACK_FUSED_LAYOUT", "auto")
         self.fused_layout = fused_layout
         self.model = nn.ModuleDict({
             "temporal_graph": backbone,

@@ -209,7 +209,11 @@ def test_unsupported_settings_raise(runs, monkeypatch):
                          (["log_per_layer_norms=True"], "Queue 1 item 7"),
                          (["log_histograms_every=1"], "Queue 1 item 7"),
                          (["log_feature_plots=True"], "Queue 1 item 13"),
-                         (["loader_processes=2"], "Queue 1 item 8")):
+                         (["loader_processes=2"], "Queue 1 item 8"),
+                         (["+model.propagate_dtype=bfloat16"],
+                          "Queue 1 item 5"),
+                         (["model.temporal_pooling.encoding=positional"],
+                          "Queue 1 item 4")):
         with pytest.raises(NotImplementedError, match=match):
             tmain.main(base + extra)
     # the configs' device=tpu means the card; without one it raises
