@@ -18,6 +18,7 @@ the port's own last validation exactly. The CLIs run as
 egopack_torch.evaluate`` with the verify notes' phase-2 command."""
 
 import json
+import os
 import os.path as osp
 import shutil
 import subprocess
@@ -369,7 +370,9 @@ def test_fused_layout_env_reaches_the_entry(monkeypatch):
 
 
 def _cli(args, cwd, timeout=300):
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd,
+    # one thread, as in this process: the suite runs beside other workers
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return proc.stderr
