@@ -62,11 +62,32 @@ Phases, any failure exits non-zero and prints no result:
              heads and the banks bit-identical. One step with the plain kNN
              from the same state, the eval step, and a small phase-2 model on
              the card against the CPU.
-8. numbers - ms per step; each kernel's device time, launches and bound; the
-             plain versions' times; one library call each as yardstick (timed
-             only; the port never calls it): ``torch.optim.Adam(fused=True)``
-             and ``torch.topk`` over the masked ``1 - bmm``. The card's
-             clocks, power and temperature are read beside each kNN window.
+8. bench   - ``python -m egopack_torch.bench`` in a process of its own at
+             full width and the bench's defaults (bf16 compute, float32
+             moments) but steps_per_call 8 and 2 windows: both JSON lines
+             parse with bench.py's keys, ``tflops`` above 0 and ``0 < mfu <
+             1``. Then one call of each line at the same settings in this
+             process, counts zeroed just before and read just after: 8
+             fused_adam launches in line 1, 8 fused_adam and 8 cosine_knn
+             in line 2.
+9. bf16    - one phase-1 and one phase-2 step at full width with
+             compute_dtype=bfloat16, then with propagate_dtype=bfloat16,
+             against the float32 steps from the same state: relative loss
+             gaps printed, each below 2**-5. Small models of both settings,
+             3 steps, card against CPU (bf16 compute: rtol 1e-4 / atol
+             1e-5; bf16 propagation: losses within one bf16 unit, rtol
+             2**-7, parameters within 2 lr a step). One phase-1 step of
+             each setting under ``torch.profiler``: busy time, idle share,
+             device events, top kernels, and the GEMM kernels by their
+             operands' type; the bf16 steps must run GEMMs on bf16 operands
+             (cuBLAS on the tensor cores, float32 output), the float32 step
+             none.
+10. numbers - ms per step; each kernel's device time, launches and bound;
+             the plain versions' times; one library call each as yardstick
+             (timed only; the port never calls it):
+             ``torch.optim.Adam(fused=True)`` and ``torch.topk`` over the
+             masked ``1 - bmm``. The card's clocks, power and temperature
+             are read beside each kNN window.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +97,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -101,7 +123,8 @@ from egopack_torch.main_temporal import main as train_main
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops.knn import prototype_topk
-from egopack_torch.profiling import busy_us, device_events, mean_us
+from egopack_torch.profiling import (busy_us, device_events, fp32_peak,
+                                     hbm_bytes_per_s, mean_us, tf32_peak)
 from egopack_torch.train import optim as topt
 from egopack_torch.train.checkpoint import load_artifact
 from egopack_torch.train.system import CKPT_KEYS
@@ -149,43 +172,6 @@ def gpu_clocks() -> str:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     return out.stdout.strip().splitlines()[0].strip()
-
-
-def hbm_bytes_per_s(name: str) -> float:
-    """Peak device-memory rate by SKU (NVIDIA data sheets)."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name:
-        if "PCIe" in name:
-            return 2.0e12
-        if "NVL" in name:
-            return 3.9e12
-        return 3.35e12  # SXM (HBM3)
-    raise RuntimeError(f"no memory rate on record for {name!r}")
-
-
-def fp32_peak(name: str) -> float:
-    """float32 FLOP/s outside the tensor cores by SKU (NVIDIA data
-    sheets)."""
-    if "H100" in name:
-        if "PCIe" in name:
-            return 51e12
-        if "NVL" in name:
-            return 60e12
-        return 67e12  # SXM
-    raise RuntimeError(f"no float32 peak on record for {name!r}")
-
-
-def tf32_peak(name: str) -> float:
-    """TF32 FLOP/s of the tensor cores, dense, by SKU (NVIDIA data
-    sheets)."""
-    if "H100" in name:
-        if "PCIe" in name:
-            return 378e12
-        if "NVL" in name:
-            return 418e12
-        return 495e12  # SXM
-    raise RuntimeError(f"no TF32 peak on record for {name!r}")
 
 
 def time_ms(fn, iters: int) -> float:
@@ -986,6 +972,211 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
     return out
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "tflops", "mfu"}
+BENCH_METRICS = ("ego4d_mtl_clips_per_sec_per_chip_fwd_bwd",
+                 "ego4d_egopack_oscc_clips_per_sec_per_chip_fwd_bwd")
+BENCH_SPC, BENCH_WINDOWS = 8, 2
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m egopack_torch.bench`` at full width and its defaults but
+    ``steps_per_call`` and the windows, in a process of its own; then the
+    launches of one call of each line, counted in this process at the same
+    settings."""
+    from egopack_torch import bench
+    env = dict(os.environ, BENCH_WINDOWS=str(BENCH_WINDOWS),
+               BENCH_STEPS_PER_CALL=str(BENCH_SPC))
+    for knob in ("BENCH_DTYPE", "BENCH_BF16_PROP", "BENCH_SKIP_EGOPACK",
+                 "BENCH_PEAK_TFLOPS", "BENCH_FEAT_DIM", "BENCH_HIDDEN",
+                 "BENCH_BATCH", "BENCH_DEVICE", "BENCH_LOG_NORMS",
+                 "BENCH_MOMENTS_DTYPE", "EGOPACK_FUSED_LAYOUT"):
+        env.pop(knob, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "egopack_torch.bench"],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=600)
+    run_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(l) for l in proc.stdout.splitlines()
+             if l.startswith("{")]
+    require([l.get("metric") for l in lines] == list(BENCH_METRICS),
+            f"bench printed {proc.stdout}")
+    for line in lines:
+        require(set(line) == BENCH_KEYS and line["unit"] == "clips/s/chip"
+                and line["value"] > 0 and line["tflops"] > 0
+                and 0 < line["mfu"] < 1, f"bench line {line}")
+    for line in proc.stdout.splitlines():
+        log(f"bench: {line}")
+    log(f"bench: the command took {run_s:.1f} s (steps_per_call "
+        f"{BENCH_SPC}, {BENCH_WINDOWS} windows) on {card}")
+
+    counts = {}
+    for name, build, lr in (("mtl", bench.build_mtl_step, bench.LR_MTL),
+                            ("egopack", bench.build_egopack_step,
+                             bench.LR_EGOPACK)):
+        step = build(BENCH_SPC)
+        step(lr)  # builds the layout constants
+        torch.cuda.synchronize()
+        tfa.fused_adam.launches = 0
+        tkt.cosine_knn.launches = 0
+        step(lr)
+        torch.cuda.synchronize()
+        counts[name] = (tfa.fused_adam.launches, tkt.cosine_knn.launches)
+        del step
+    want = {"mtl": (BENCH_SPC, 0), "egopack": (BENCH_SPC, BENCH_SPC)}
+    require(counts == want, f"launches of one bench call {counts}, "
+            f"expected {want} (fused_adam, cosine_knn)")
+    (adam1, _), (adam2, knn2) = counts["mtl"], counts["egopack"]
+    log(f"bench: one call of {BENCH_SPC} steps launches fused_adam {adam1} "
+        f"times in line 1; fused_adam {adam2} and cosine_knn {knn2} times in "
+        "line 2")
+    return {"lines": lines, "adam": counts["mtl"][0] + counts["egopack"][0],
+            "knn": counts["egopack"][1]}
+
+
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+
+
+def gemm_kernels(prof, path: str) -> dict:
+    """The kernels launched by matrix products in a ``torch.profiler``
+    trace recorded with ``record_shapes``, keyed by (the op's first operand
+    type, its first two operands' shapes, kernel name): [launches, device
+    us]. The exported Chrome trace ties each kernel to its op by the op's
+    external id."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {}
+    for e in events:
+        args = e.get("args", {})
+        if e.get("cat") == "cpu_op" and e.get("name") in GEMM_OPS \
+                and "External id" in args:
+            ops[args["External id"]] = (
+                args.get("Input type", ["?"])[0],
+                json.dumps(args.get("Input Dims", [])[:2]))
+    out: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ext = e.get("args", {}).get("External id")
+        if ext in ops:
+            entry = out.setdefault(ops[ext] + (e["name"],), [0, 0.0])
+            entry[0] += 1
+            entry[1] += float(e.get("dur", 0.0))
+    return out
+
+
+def profile_step(step, lr: float, path: str):
+    """One warm step, then one step under ``torch.profiler`` (CPU and CUDA,
+    shapes recorded): (GEMM kernels by operand type, device busy ms, the
+    idle share of the span from the step's first kernel to its last, device
+    events, the top kernels by device ms)."""
+    step(lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(lr)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    require(bool(events), "the profiler recorded no device events")
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    busy = busy_us(events)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return gemm_kernels(prof, path), busy / 1e3, 1.0 - busy / span, \
+        len(events), top
+
+
+def loss_gap(a: dict, b: dict, key: str) -> float:
+    return abs(float(a[key]) - float(b[key])) / abs(float(b[key]))
+
+
+def phase_bf16(dev, card: str, tmp: str) -> None:
+    """bf16 compute and bf16 propagation at full width against float32
+    from the same state, small models against the CPU, and the GEMM
+    kernels of the bf16 step."""
+    # full width: one step of each phase, dropout off, seeded alike
+    gaps = {}
+    for name, kw in (("compute_dtype=bfloat16",
+                      {"compute_dtype": torch.bfloat16}),
+                     ("propagate_dtype=bfloat16",
+                      {"propagate_dtype": torch.bfloat16})):
+        ref = build_mtl_step(BATCH, FEAT, HIDDEN, tp_dropout=0.0, device=dev)
+        l32 = ref(LR)
+        ours = build_mtl_step(BATCH, FEAT, HIDDEN, tp_dropout=0.0,
+                              device=dev, **kw)
+        l16 = ours(LR)
+        del ref, ours
+        e32 = build_egopack_step(BATCH, FEAT, HIDDEN, device=dev)(LR_EGO)
+        e16 = build_egopack_step(BATCH, FEAT, HIDDEN, device=dev,
+                                 **kw)(LR_EGO)
+        torch.cuda.synchronize()
+        g = {f"phase1 {k}": loss_gap(l16, l32, k)
+             for k in ("ar_loss", "lta_loss", "pnr_loss")}
+        g["phase2 oscc_loss"] = loss_gap(e16, e32, "oscc_loss")
+        # bf16 operands carry 8 significant bits: within 2**-5 of float32
+        # after the few layers between the inputs and a loss
+        require(all(math.isfinite(v) and v < 2.0 ** -5 for v in g.values()),
+                f"{name}: relative loss gaps to float32 {g}")
+        gaps[name] = g
+        log(f"bf16: {name}, one step at full width from the float32 step's "
+            f"state: relative loss gaps to float32 {json.dumps(g)}")
+
+    # small models, card against CPU: with bf16 compute only the first
+    # product takes bf16 operands, whose products are exact, so float32
+    # tolerances; with bf16 propagation a bf16 rounding may fall the other
+    # way, so losses within one bf16 unit and parameters within 2 lr a step
+    for name, kw, loss_tol, param_atol in (
+            ("compute_dtype=bfloat16", {"compute_dtype": torch.bfloat16},
+             dict(rtol=1e-4, atol=1e-5), 1e-5),
+            ("propagate_dtype=bfloat16", {"propagate_dtype": torch.bfloat16},
+             dict(rtol=2.0 ** -7, atol=1e-5), 3 * 2 * 1e-3)):
+        cpu = build_mtl_step(2, 16, 32, tp_dropout=0.0, device="cpu", **kw)
+        gpu = build_mtl_step(2, 16, 32, tp_dropout=0.0, device=dev, **kw)
+        gpu.system.load_state({k: v.to(dev) for k, v in
+                               cpu.system.model.state_dict().items()})
+        for step in range(3):
+            lc, lg = cpu(1e-3), gpu(1e-3)
+            for k in lc:
+                torch.testing.assert_close(
+                    lg[k].detach().cpu(), lc[k].detach(), **loss_tol,
+                    msg=lambda m: f"{name} step {step} {k}: {m}")
+        pc, pg = snapshot(cpu.system), snapshot(gpu.system)
+        err = max(max_err(pg[n].cpu(), pc[n]) for n in pc)
+        require(err <= param_atol, f"{name}: parameters differ by {err}")
+        log(f"bf16: small model, {name}, 3 steps, card against CPU: losses "
+            f"within {loss_tol}, parameters max_abs_err {err!r} (at most "
+            f"{param_atol})")
+
+    # the products of the bf16 step: bf16 GEMMs on the tensor cores
+    for name, kw in (("float32", {}),
+                     ("compute_dtype=bfloat16",
+                      {"compute_dtype": torch.bfloat16}),
+                     ("propagate_dtype=bfloat16",
+                      {"compute_dtype": torch.bfloat16,
+                       "propagate_dtype": torch.bfloat16})):
+        step = build_mtl_step(BATCH, FEAT, HIDDEN, device=dev, **kw)
+        gemms, busy, idle, n_events, top = profile_step(
+            step, LR, f"{tmp}/trace_{name}.json")
+        del step
+        bf16 = {k: v for k, v in gemms.items() if "BFloat16" in k[0]}
+        log(f"bf16: phase-1 step, {name}: device busy {busy!r} ms, idle "
+            f"share {idle!r}, {n_events} device events; top kernels "
+            f"{json.dumps([[n[:90], ms] for n, ms in top])}")
+        for (dtype, dims, kname), (n, us) in sorted(gemms.items()):
+            log(f"bf16:   GEMM {dtype} {dims} x{n} {us!r} us {kname[:100]}")
+        if name != "float32":
+            require(bf16, f"{name}: no matrix product with bf16 operands "
+                    f"launched a kernel: {sorted(gemms)}")
+        else:
+            require(not bf16, f"float32 step ran bf16 GEMMs: {sorted(bf16)}")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     def timed(load):
@@ -1021,6 +1212,10 @@ def run(dev, card: str):
         mtl, loaded, dev, card)
     del loaded
     phase_small_egopack_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    bench_run = phase_bench(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        phase_bf16(dev, card, tmp)
     nums = phase_numbers(mtl, dev, card)
     knn_nums = phase_knn_numbers(main_knn, dev, card)
     del ego
@@ -1035,7 +1230,8 @@ def run(dev, card: str):
         "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
         "launches_by_path": {"train": launches, "driver": drv_launches,
                              "egopack_driver": ego_drv["adam_launches"],
-                             "evaluate": 0, "egopack": ego_steps},
+                             "evaluate": 0, "egopack": ego_steps,
+                             "bench": bench_run["adam"]},
     }, {
         "name": "cosine_knn", "route": "cuda",
         "source": "egopack_torch/ops/csrc/knn_topk.cu",
@@ -1044,7 +1240,8 @@ def run(dev, card: str):
         **knn_nums["main"],
         "launches_by_path": {"egopack_driver": ego_drv["knn_launches"],
                              "evaluate": eval_launches,
-                             "egopack": knn_launches},
+                             "egopack": knn_launches,
+                             "bench": bench_run["knn"]},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
@@ -1057,7 +1254,9 @@ def run(dev, card: str):
                f"{ego_drv['steps']} steps and "
                f"{ego_drv['val_batches'] * DRIVER_EPOCHS} validation batches; "
                f"{eval_launches} in evaluate's {ego_drv['val_batches']} "
-               f"batches; {knn_swaps} near-tie swaps in the kernel checks)")
+               f"batches; {knn_swaps} near-tie swaps in the kernel checks; "
+               f"one bench call of {BENCH_SPC} steps per line: fused_adam "
+               f"{bench_run['adam']}, cosine_knn {bench_run['knn']})")
     return kernels, summary
 
 

@@ -73,23 +73,22 @@ def temporal_graph(input_size: int, hidden_size: int = 1024, depth: int = 3,
                    device=None):
     """The backbone from its config node. The JAX ``TemporalGraph`` takes
     its pooling as a config node and instantiates it with
-    ``(input_size, hidden_size, num_segments)``
-    (``egopack_tpu/models/backbone.py:44-52``); the port's takes a module,
-    built here the same way. ``propagate_dtype`` (the JAX package's bf16
-    activation path, ``egopack_tpu/models/backbone.py:42-62``) is not
-    ported yet and raises."""
+    ``(input_size, hidden_size, num_segments)`` and its ``propagate_dtype``
+    (``egopack_tpu/models/backbone.py:44-62``); the port's takes a module,
+    built here the same way. ``propagate_dtype`` is ``None``, ``"float32"``,
+    ``"bfloat16"`` (``+model.propagate_dtype=bfloat16``) or a
+    ``torch.dtype``."""
     from ..models.backbone import TemporalGraph
+    from ..models.layers import resolve_dtype
 
-    if propagate_dtype is not None:
-        raise NotImplementedError(
-            f"model.propagate_dtype={propagate_dtype!r} is not ported yet; "
-            "see ROADMAP.md, Queue 1 item 5")
+    propagate_dtype = resolve_dtype(propagate_dtype)
     if isinstance(temporal_pooling, dict):
         temporal_pooling = instantiate(temporal_pooling, input_size,
                                        hidden_size, num_segments,
-                                       device=device)
+                                       dtype=propagate_dtype, device=device)
     return TemporalGraph(input_size, hidden_size, depth, pre_dropout,
-                         temporal_pooling, num_segments, device=device)
+                         temporal_pooling, num_segments, propagate_dtype,
+                         device=device)
 
 
 __all__ = ["instantiate", "locate", "ConfigNode", "TARGETS"]

@@ -1,21 +1,24 @@
 """Entry points of the phase-1 multi-task train step and the phase-2
 EgoPack step (counterpart of ``__graft_entry__._build_system`` /
-``_synthetic_batches`` and of what ``bench.py:build_mtl_step`` and
-``build_egopack_step`` drive).
+``_synthetic_batches`` / ``make_device_batch_gen`` and of what
+``bench.py:build_mtl_step`` and ``build_egopack_step`` drive).
 
 ``build_mtl_step`` assembles the phase-1 path: system, seeded init, the
 driver's trainable mask (backbone + active heads; the OSCC head stays
 frozen), Adam and the train step, plus synthetic batches made from a numpy
-seed exactly as the JAX entry makes them. ``build_egopack_step`` assembles
-the novel-OSCC phase-2 path as ``train/driver.py:train_egopack`` does:
-phase-2 system, the phase-1 state merged in, prototype banks, GraphONE,
-Adam over the phase-2 trainable mask and the EgoPack step.
+seed exactly as the JAX entry makes them, or on the card
+(``device_batches``). ``build_egopack_step`` assembles the novel-OSCC
+phase-2 path as ``train/driver.py:train_egopack`` does: phase-2 system, the
+phase-1 state merged in, prototype banks, GraphONE, Adam over the phase-2
+trainable mask and the EgoPack step. With ``steps_per_call`` K > 1 both
+build the multi-step over K batch groups, as the bench does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, \
+    Tuple, Union
 
 import numpy as np
 import torch
@@ -42,16 +45,19 @@ def build_system(hidden: int, tp_hidden: int, feat_dim: int,
                  num_segments: int = 3, tp_dropout: float = 0.5, *,
                  compute_dtype: torch.dtype = torch.float32,
                  fused_layout: Optional[str] = None, phase2: bool = False,
+                 propagate_dtype: Any = None,
                  device: DeviceLike = None) -> MultiTaskSystem:
     """Backbone (TRN pooling + 3 SAGE layers) and the four heads; with
-    ``phase2`` each head also carries its aux classifier set. Parameters are
-    zeros until ``init_params`` or ``load_state``."""
+    ``phase2`` each head also carries its aux classifier set;
+    ``propagate_dtype`` as for ``TemporalGraph``. Parameters are zeros until
+    ``init_params`` or ``load_state``."""
     dev = resolve_device(device)
     pooling = TRNPooling(feat_dim, hidden, num_segments, hidden_size=tp_hidden,
-                         dropout=tp_dropout, device=dev)
+                         dropout=tp_dropout, dtype=propagate_dtype, device=dev)
     backbone = TemporalGraph(feat_dim, hidden, depth=3,
                              temporal_pooling=pooling,
-                             num_segments=num_segments, device=dev)
+                             num_segments=num_segments,
+                             propagate_dtype=propagate_dtype, device=dev)
     aux = PHASE2_AUX if phase2 else {t: None for t in PHASE2_AUX}
     heads = {
         "ar": RecognitionTask("ar", hidden, hidden, heads=(N_VERBS, N_NOUNS),
@@ -121,13 +127,85 @@ def to_device(batches: Dict[str, Dict[str, np.ndarray]],
             for name, b in batches.items()}
 
 
+def make_device_batch_gen(system: MultiTaskSystem, batch: int, feat_dim: int,
+                          num_segments: int = 3
+                          ) -> Callable[[int], Dict[str, Dict[str,
+                                                            torch.Tensor]]]:
+    """``gen(seed) -> {task: batch}`` drawn on the system's device from a
+    seeded ``torch.Generator`` there (``__graft_entry__.py:90-135``): the
+    shapes, dtypes, layouts and label ranges of :func:`synthetic_batches`,
+    LTA's strict ``y > 0`` verbs included, without a copy from the host.
+    The draws are not JAX's; the bench times them and compares nothing."""
+    dev = system.device
+    sizes = {n: system.tasks[n].spec.num_nodes for n in sorted(system.tasks)}
+
+    def gen(seed: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        g = make_generator(seed, dev)
+
+        def randint(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        out = {}
+        for name, n in sizes.items():
+            if name == "lta":
+                shape = (batch, 2, num_segments, feat_dim)
+            elif name == "pnr":
+                shape = (batch, n, feat_dim)
+            else:
+                shape = (batch, n, num_segments, feat_dim)
+            x = torch.randn(shape, generator=g, device=dev)
+            if name == "oscc":
+                y = randint(0, 2, (batch,))
+            elif name == "pnr":
+                y = torch.nn.functional.one_hot(
+                    randint(0, n, (batch,)).long(), n).to(torch.int32)
+            else:
+                y = torch.full((batch, n, 2), -1, dtype=torch.int32,
+                               device=dev)
+                if name == "ar":
+                    y[:, n // 2, 0] = randint(0, N_VERBS, (batch,))
+                    y[:, n // 2, 1] = randint(0, N_NOUNS, (batch,))
+                else:  # lta: verbs from 1, the reference's y > 0 quirk
+                    y[:, 2:, 0] = randint(1, N_VERBS, (batch, n - 2))
+                    y[:, 2:, 1] = randint(0, N_NOUNS, (batch, n - 2))
+            out[name] = {"x": x, "y": y,
+                         "valid": torch.ones(batch, dtype=torch.bool,
+                                             device=dev)}
+        return out
+
+    return gen
+
+
+def _batch_groups(system: MultiTaskSystem, batch: int, feat_dim: int,
+                  names: Sequence[str], steps_per_call: int, seed: int,
+                  device_batches: bool):
+    """One batch group (``steps_per_call`` 1) or a list of them: group k
+    from seed ``seed + k``, by numpy on the host or on the card."""
+    gen = make_device_batch_gen(system, batch, feat_dim) if device_batches \
+        else None
+    groups = []
+    for k in range(steps_per_call):
+        if gen is not None:
+            b = gen(seed + k)
+        else:
+            b = synthetic_batches(system, batch, feat_dim, seed=seed + k,
+                                  names=names)
+        groups.append({n: b[n] for n in names})
+    return groups[0] if steps_per_call == 1 else groups
+
+
+Batches = Union[Dict[str, Dict[str, torch.Tensor]],
+                List[Dict[str, Dict[str, torch.Tensor]]]]
+
+
 @dataclass
 class MTLStep:
     system: MultiTaskSystem
     optimizer: topt.Adam
     opt_state: topt.AdamState
     step: Callable
-    batches: Dict[str, Dict[str, torch.Tensor]]
+    batches: Batches  # one group, or a list of steps_per_call groups
     generator: torch.Generator
 
     def __call__(self, lr: float = 1e-5) -> Dict[str, torch.Tensor]:
@@ -137,16 +215,20 @@ class MTLStep:
 def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
                    *, impl: str = "fused", moments_dtype: str = "float32",
                    compute_dtype: torch.dtype = torch.float32,
+                   propagate_dtype: Any = None,
                    fused_layout: Optional[str] = None,
                    tp_dropout: float = 0.5,
-                   active: Tuple[str, ...] = ACTIVE, log_norms: bool = True,
+                   active: Tuple[str, ...] = ACTIVE, log_norms=True,
+                   steps_per_call: int = 1, device_batches: bool = False,
                    seed: int = 0, device: DeviceLike = None) -> MTLStep:
     """The phase-1 AR+LTA+PNR train step at the bench configuration
     (hidden 1024, feat 1536, batch 16 per task by default), Adam(1e-5,
-    wd 1e-5) over the driver's trainable mask."""
+    wd 1e-5) over the driver's trainable mask. ``log_norms``: True, False
+    or ``"last"`` (the multi-step's last step only)."""
     dev = resolve_device(device)
     system = build_system(hidden, hidden, feat_dim, tp_dropout=tp_dropout,
                           compute_dtype=compute_dtype,
+                          propagate_dtype=propagate_dtype,
                           fused_layout=fused_layout, device=dev)
     generator = make_generator(seed, dev)
     system.init_params(generator)
@@ -155,10 +237,12 @@ def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
     optimizer = topt.adam(1e-5, 1e-5, trainable_mask=mask,
                           moments_dtype=moments_dtype, impl=impl)
     opt_state = optimizer.init(system.params())
-    step = system.make_train_step(optimizer, active, log_norms=log_norms)
-    batches = {n: b for n, b in synthetic_batches(system, batch, feat_dim,
-                                                  seed=seed).items()
-               if n in active}
+    step = (system.make_train_step_multi(optimizer, active, steps_per_call,
+                                         log_norms=log_norms)
+            if steps_per_call > 1 else
+            system.make_train_step(optimizer, active, log_norms=log_norms))
+    batches = _batch_groups(system, batch, feat_dim, active, steps_per_call,
+                            seed, device_batches)
     return MTLStep(system, optimizer, opt_state, step, batches, generator)
 
 
@@ -199,7 +283,7 @@ class EgoPackStep:
     optimizer: topt.Adam
     opt_state: topt.AdamState
     step: Callable
-    batches: Dict[str, Dict[str, torch.Tensor]]
+    batches: Batches
     generator: torch.Generator
 
     def __call__(self, lr: float = 1e-6) -> Dict[str, torch.Tensor]:
@@ -214,6 +298,10 @@ def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
                        proto_batches: Optional[Iterable[Dict[str,
                                                              torch.Tensor]]]
                        = None, p_pad: int = 2048, fill: int = 1900,
+                       compute_dtype: torch.dtype = torch.float32,
+                       propagate_dtype: Any = None,
+                       moments_dtype: str = "float32", log_norms=True,
+                       steps_per_call: int = 1, device_batches: bool = False,
                        seed: int = 0, device: DeviceLike = None
                        ) -> EgoPackStep:
     """The phase-2 novel-OSCC EgoPack step at the bench configuration
@@ -221,14 +309,16 @@ def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
     GraphONE k=8, depth 3, no residual, the kNN kernel on the card;
     Adam(1e-6, wd 1e-5) with ``impl="fused"`` over ``temporal_graph``,
     ``task/oscc`` and ``graphone``; backprop into the backbone, backbone in
-    eval mode, late fusion; f32 compute.
+    eval mode, late fusion.
 
     ``loaded``: a phase-1 torch state merged in with
     ``merge_loaded_params``. Banks: ``banks`` as given, else built from
     ``proto_batches`` (AR batches) with the merged weights, else seeded
     random banks of ``p_pad`` rows with ``fill`` valid."""
     dev = resolve_device(device)
-    system = build_system(hidden, hidden, feat_dim, phase2=True, device=dev)
+    system = build_system(hidden, hidden, feat_dim, phase2=True,
+                          compute_dtype=compute_dtype,
+                          propagate_dtype=propagate_dtype, device=dev)
     generator = make_generator(seed, dev)
     system.init_params(generator)
     if loaded is not None:
@@ -246,12 +336,17 @@ def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
     trainable = ["temporal_graph", CKPT_KEYS["oscc"], "graphone"]
     optimizer = topt.adam(1e-6, 1e-5,
                           trainable_mask=topt.trainable_mask_fn(trainable),
-                          impl="fused")
+                          moments_dtype=moments_dtype, impl="fused")
     opt_state = optimizer.init(system.params())
-    step = system.make_egopack_train_step(
-        optimizer, ("oscc",), graphone, backprop_temporal_graph=True,
-        temporal_graph_train_mode=False, late_fusion=True)
-    batches = synthetic_batches(system, batch, feat_dim, seed=seed,
-                                names=("oscc",))
+    modes = dict(backprop_temporal_graph=True,
+                 temporal_graph_train_mode=False, late_fusion=True,
+                 log_norms=log_norms)
+    step = (system.make_egopack_train_step_multi(
+        optimizer, ("oscc",), graphone, steps_per_call, **modes)
+        if steps_per_call > 1 else
+        system.make_egopack_train_step(optimizer, ("oscc",), graphone,
+                                       **modes))
+    batches = _batch_groups(system, batch, feat_dim, ("oscc",),
+                            steps_per_call, seed, device_batches)
     return EgoPackStep(system, graphone, banks, optimizer, opt_state, step,
                        batches, generator)

@@ -40,6 +40,16 @@ def top_level_key(name: str) -> str:
     return _split(name)[0]
 
 
+def flax_path(name: str, ndim: int) -> List[str]:
+    """The flax path of the torch tensor ``name`` of ``ndim`` dimensions
+    (``temporal_graph.pooling.fc0.weight`` of 2 ->
+    ``[temporal_graph, pooling, fc0, kernel]``)."""
+    parts = _split(name)
+    if parts[-1] == "weight":
+        parts[-1] = "kernel" if ndim == 2 else "scale"
+    return parts
+
+
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
              ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     for key, value in tree.items():
@@ -70,14 +80,11 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Torch state -> flax parameter tree (numpy leaves)."""
     tree: Dict[str, Any] = {}
     for name, tensor in state.items():
-        parts = _split(name)
         a = tensor.detach().cpu().numpy()
+        parts = flax_path(name, a.ndim)
         leaf = parts[-1]
-        if leaf == "weight":
-            if a.ndim == 2:
-                a, leaf = a.T, "kernel"
-            else:
-                leaf = "scale"
+        if leaf == "kernel":
+            a = a.T
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})

@@ -6,11 +6,19 @@ TRN pooling -> ``x + net(x + PE(pos))`` where net = depth x [SAGEConv(project)
 -> graph-LayerNorm -> LeakyReLU(0.2)] + Linear. Graphs are dense static
 in-neighbour masks, and node masks keep padded samples out of the
 statistics.
+
+``propagate_dtype`` (``egopack_tpu/models/backbone.py:38-62``): ``None``
+keeps float32 activations between layers (bf16 operands only where the
+input is bf16); ``bfloat16`` keeps them in bf16 through the pooling, the
+SAGE layers and ``out_lin``. The graph LayerNorms compute in float32 and
+return the input's dtype, the positional encoding takes the activations'
+dtype, and the system casts the backbone's output back to float32 before
+the heads.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -18,8 +26,18 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike
 from .layers import (DenseSAGEConv, GraphLayerNorm, TLinear, dropout,
-                     positional_encoding)
+                     positional_encoding, resolve_dtype)
 from .pooling import TRNPooling
+
+
+def _leaky_relu(z: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) as JAX computes it: the slope is rounded to the
+    activations' dtype, so under bf16 propagation negative values are
+    multiplied by bf16(0.2) = 0.2002, not by 0.2 as ``F.leaky_relu``
+    does."""
+    if z.dtype != torch.bfloat16:
+        return F.leaky_relu(z, 0.2)
+    return torch.where(z >= 0, z, z * torch.tensor(0.2, dtype=z.dtype))
 
 
 class TemporalGraph(nn.Module):
@@ -31,21 +49,26 @@ class TemporalGraph(nn.Module):
     def __init__(self, input_size: int, hidden_size: int = 1024,
                  depth: int = 3, pre_dropout: float = 0.0,
                  temporal_pooling: Optional[nn.Module] = None,
-                 num_segments: int = 8, *, device: DeviceLike = None):
+                 num_segments: int = 8, propagate_dtype: Any = None, *,
+                 device: DeviceLike = None):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.depth = depth
         self.pre_dropout = pre_dropout
         self.num_segments = num_segments
+        self.propagate_dtype = dtype = resolve_dtype(propagate_dtype)
         self.pooling = temporal_pooling if temporal_pooling is not None else \
-            TRNPooling(input_size, hidden_size, num_segments, device=device)
+            TRNPooling(input_size, hidden_size, num_segments, dtype=dtype,
+                       device=device)
         for i in range(depth):
             self.add_module(f"sage{i}", DenseSAGEConv(
-                hidden_size, hidden_size, project=True, device=device))
+                hidden_size, hidden_size, project=True, dtype=dtype,
+                device=device))
             self.add_module(f"gn{i}", GraphLayerNorm(hidden_size,
                                                      device=device))
-        self.out_lin = TLinear(hidden_size, hidden_size, device=device)
+        self.out_lin = TLinear(hidden_size, hidden_size, dtype=dtype,
+                               device=device)
 
     def _layers(self):
         return [(getattr(self, f"sage{i}"), getattr(self, f"gn{i}"))
@@ -67,7 +90,7 @@ class TemporalGraph(nn.Module):
         pe = positional_encoding(pos, self.hidden_size).to(h.dtype)
         z = h + pe if pe.ndim == h.ndim else h + pe[None]
         for conv, norm in self._layers():
-            z = F.leaky_relu(norm(conv(z, adj), node_mask), 0.2)
+            z = _leaky_relu(norm(conv(z, adj), node_mask))
         return h + self.out_lin(z)
 
     def reason_multi(self, hs: Sequence[torch.Tensor],
@@ -83,7 +106,7 @@ class TemporalGraph(nn.Module):
               for h, p in zip(hs, poss)]
         for conv, norm in self._layers():
             zs = conv.multi(zs, adjs)
-            zs = [F.leaky_relu(norm(z, m), 0.2) for z, m in zip(zs, node_masks)]
+            zs = [_leaky_relu(norm(z, m)) for z, m in zip(zs, node_masks)]
         sizes = [(z.shape[0], z.shape[1]) for z in zs]
         flat = torch.cat([z.reshape(1, -1, z.shape[-1]) for z in zs], 1)
         out_flat = self.out_lin(flat)
@@ -106,8 +129,8 @@ class TemporalGraph(nn.Module):
             return h
         z = h + positional_encoding(pos_cc, self.hidden_size).to(h.dtype)[None]
         for conv, norm in self._layers():
-            z = F.leaky_relu(norm(conv.concat(z, adj_cc), mask_cc,
-                                  task_onehot), 0.2)
+            z = _leaky_relu(norm(conv.concat(z, adj_cc), mask_cc,
+                                 task_onehot))
         return h + self.out_lin(z)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor, pos: torch.Tensor,

@@ -11,13 +11,72 @@ module touches the global RNG.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(value: Any) -> Optional[torch.dtype]:
+    """A layer's ``dtype`` as the JAX configs give it: ``None``, the name
+    ``"float32"`` or ``"bfloat16"`` (``+model.propagate_dtype=bfloat16``),
+    or a ``torch.dtype`` of the two."""
+    if value is None or value in DTYPES.values():
+        return value
+    if isinstance(value, str) and value in DTYPES:
+        return DTYPES[value]
+    raise ValueError(f"dtype must be None, float32 or bfloat16, got {value!r}")
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices, summed and returned in float32. On
+    the card one cuBLAS bf16 GEMM on the tensor cores (``aten::mm.dtype``);
+    on the CPU, which has no such overload, the float32 product of the same
+    values, which is exact in each term."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """``x @ wᵀ`` for bf16 ``x (..., in)`` and ``w (out, in)``, float32 out:
+    ``jnp.dot(x, k, preferred_element_type=float32)`` of the JAX layer.
+
+    The gradients follow JAX's transpose rule: each is a float32 product
+    rounded to its operand's dtype, bf16. When the incoming gradient holds
+    bf16 values (``grad_is_bf16``: the layer rounds its output to bf16, so
+    its cotangent is bf16), those products are bf16 GEMMs too; otherwise
+    they run in float32, as on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                grad_is_bf16: bool) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.grad_is_bf16 = grad_is_bf16
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        if ctx.grad_is_bf16:
+            g2 = g2.to(torch.bfloat16)
+            mm = _mm_f32
+        else:
+            def mm(a, b):
+                return torch.mm(a.float(), b.float())
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = mm(g2, w).to(torch.bfloat16).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = mm(g2.t(), x.reshape(-1, x.shape[-1])).to(torch.bfloat16)
+        return gx, gw, None
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -37,20 +96,27 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 class TLinear(nn.Module):
-    """Linear layer with torch-default init, ``weight (out, in)``.
+    """Linear layer with torch-default init, ``weight (out, in)``
+    (``egopack_tpu/models/layers.py:29-59``).
 
-    Mixed-precision policy of the JAX layer: when the input is bfloat16 the
-    product takes bf16 operands (input and rounded weight), sums in float32
-    and returns float32. Products of two bf16 values are exact in float32, so
-    a float32 product of the rounded operands is that policy; ``F.linear``
-    on bf16 would return bf16 and is not."""
+    Mixed-precision policy of the JAX layer: the product's operands take
+    ``dtype`` if it is given, else the input's dtype. bf16 operands (input
+    and rounded weight) are summed in float32 and the result, bias added, is
+    float32 with ``dtype=None`` and rounded to bf16 with
+    ``dtype=bfloat16``. On the card that product is a bf16 tensor-core GEMM
+    with float32 output; on the CPU it is the float32 product of the
+    rounded operands, which is the same number up to the order of the sums
+    (a product of two bf16 values is exact in float32). A bf16-output GEMM
+    would round before the bias is added, where JAX rounds after, so it is
+    not used."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, device: DeviceLike = None):
+                 *, dtype: Any = None, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
+        self.dtype = resolve_dtype(dtype)
         self.weight = nn.Parameter(torch.zeros(out_features, in_features,
                                                device=dev))
         if bias:
@@ -67,11 +133,15 @@ class TLinear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.bfloat16:
-            w = self.weight.to(torch.bfloat16).float()
-            y = torch.matmul(x.float(), w.t())
-            return y + self.bias if self.bias is not None else y
-        return F.linear(x, self.weight, self.bias)
+        in_dtype = self.dtype or x.dtype
+        if in_dtype != torch.bfloat16:
+            return F.linear(x.to(in_dtype), self.weight, self.bias)
+        y = _Bf16Linear.apply(x.to(torch.bfloat16),
+                              self.weight.to(torch.bfloat16),
+                              self.dtype == torch.bfloat16)
+        if self.bias is not None:
+            y = y + self.bias
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -143,31 +213,38 @@ class DenseSAGEConv(nn.Module):
     - mean over in-neighbours ``j`` with ``adj[t, j]``; a node with no
       in-neighbours aggregates to 0 (PyG scatter semantics)
     - output ``W_l agg (+ b_l) + W_r x_t``; the root weight has no bias
+
+    ``dtype`` goes to the three linears (``egopack_tpu/models/layers.py:
+    147-160``): ``bfloat16`` keeps the activations in bf16 between layers.
     """
 
     def __init__(self, in_features: int, out_features: int,
                  project: bool = False, bias: bool = True, *,
-                 device: DeviceLike = None):
+                 dtype: Any = None, device: DeviceLike = None):
         super().__init__()
         msg_features = out_features if project else in_features
         if project:
             self.lin_project = TLinear(in_features, out_features,
-                                       device=device)
+                                       dtype=dtype, device=device)
         self.project = project
         self.lin_l = TLinear(msg_features, out_features, bias=bias,
-                             device=device)
+                             dtype=dtype, device=device)
         self.lin_r = TLinear(in_features, out_features, bias=False,
-                             device=device)
+                             dtype=dtype, device=device)
 
     def _messages(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.lin_project(x)) if self.project else x
 
     @staticmethod
     def _aggregate(msg: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        # adj (N, N) broadcasts over the batch; (B, N, N) is per sample
+        """Mean over in-neighbours in JAX's order of casts
+        (``egopack_tpu/models/layers.py:165-170``): the sum in float32, cast
+        to the messages' dtype, then divided by a degree in that dtype, so
+        under bf16 propagation the division is a bf16 one.
+        adj (N, N) broadcasts over the batch; (B, N, N) is per sample."""
         a = adj.to(msg.dtype)
         deg = torch.clamp_min(a.sum(-1, keepdim=True), 1.0)
-        agg = torch.matmul(a, msg) / deg
+        agg = torch.matmul(a.float(), msg.float()).to(msg.dtype) / deg
         return torch.where(adj.any(-1, keepdim=True), agg, 0.0)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,13 @@ Flattens the S segment features of each node and runs a 3-layer MLP
 reference ``models/temporal_pooling/trn_pooling.py:10-45`` does. The optional
 per-frame encodings of the JAX base class (learnt, positional, temporal) are
 not ported yet (ROADMAP.md, Queue 1 item 4); the reference experiments never
-enable them, and asking for one raises.
+enable them, and asking for one raises. ``dtype`` goes to ``fc0``, ``fc1``
+and ``fc_out`` (``egopack_tpu/models/pooling.py:30``, ``:72``, ``:76``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -25,7 +26,7 @@ class TRNPooling(nn.Module):
 
     def __init__(self, input_size: int, output_size: int, num_segments: int,
                  hidden_size: int = 1024, dropout: float = 0.0,
-                 encoding: Optional[str] = None, *,
+                 encoding: Optional[str] = None, *, dtype: Any = None,
                  device: DeviceLike = None):
         super().__init__()
         if encoding is not None:
@@ -36,11 +37,13 @@ class TRNPooling(nn.Module):
         self.num_segments = num_segments
         self.dropout = dropout
         self.fc0 = TLinear(num_segments * input_size, hidden_size,
-                           device=device)
+                           dtype=dtype, device=device)
         self.ln0 = LayerNorm(hidden_size, device=device)
-        self.fc1 = TLinear(hidden_size, hidden_size, device=device)
+        self.fc1 = TLinear(hidden_size, hidden_size, dtype=dtype,
+                           device=device)
         self.ln1 = LayerNorm(hidden_size, device=device)
-        self.fc_out = TLinear(hidden_size, output_size, device=device)
+        self.fc_out = TLinear(hidden_size, output_size, dtype=dtype,
+                              device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,4 +1,10 @@
-"""Reading the card's work out of a ``torch.profiler`` trace.
+"""The card's peak rates, and reading its work out of a ``torch.profiler``
+trace.
+
+Peaks are looked up by the name ``nvidia-smi --query-gpu=name`` prints
+(``torch.cuda.get_device_name`` gives the same), from NVIDIA's data sheets
+and the Hopper architecture white paper: dense rates, without sparsity, at
+the card's full power limit. An unknown card raises.
 
 Kernels can overlap on the card (several streams, or a launch that starts
 before the previous kernel ends), so the time the card is busy is the length
@@ -10,6 +16,45 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 from torch.autograd import DeviceType
+
+# (SXM, NVL, PCIe) per H100 variant; the H200 has the SXM part's rates but
+# faster memory
+_HBM = {"SXM": 3.35e12, "NVL": 3.9e12, "PCIe": 2.0e12}
+_FP32 = {"SXM": 67e12, "NVL": 60e12, "PCIe": 51e12}
+_TF32 = {"SXM": 495e12, "NVL": 418e12, "PCIe": 378e12}
+_BF16 = {"SXM": 989.4e12, "NVL": 835.5e12, "PCIe": 756e12}
+
+
+def _variant(name: str, what: str) -> str:
+    if "H200" in name:
+        return "SXM"
+    if "H100" in name:
+        return "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
+    raise RuntimeError(f"no {what} on record for {name!r}")
+
+
+def hbm_bytes_per_s(name: str) -> float:
+    """Peak device-memory rate."""
+    if "H200" in name:
+        return 4.8e12
+    return _HBM[_variant(name, "memory rate")]
+
+
+def fp32_peak(name: str) -> float:
+    """float32 FLOP/s outside the tensor cores."""
+    return _FP32[_variant(name, "float32 peak")]
+
+
+def tf32_peak(name: str) -> float:
+    """TF32 FLOP/s of the tensor cores."""
+    return _TF32[_variant(name, "TF32 peak")]
+
+
+def bf16_peak(name: str) -> float:
+    """bf16 FLOP/s of the tensor cores with float32 sums: 989.4 TFLOP/s on
+    the H100 SXM (white paper), 835.5 on the H100 NVL (half its data
+    sheet's 1,671 with sparsity), 756 on the H100 PCIe (white paper)."""
+    return _BF16[_variant(name, "bf16 peak")]
 
 
 def device_events(prof) -> List:

@@ -86,11 +86,6 @@ def check_supported(cfg) -> None:
             f"parallel={to_container(par)}: the port runs on one card "
             "(parallel.data 1 or -1, parallel.model 1, no multihost); "
             "multi-GPU is ROADMAP.md Queue 1 item 14")
-    if bool(cfg.get("log_per_layer_norms", False)) \
-            or int(cfg.get("log_histograms_every", 0)) > 0:
-        raise NotImplementedError(
-            "log_per_layer_norms and log_histograms_every are not ported "
-            "yet; see ROADMAP.md, Queue 1 item 7")
     if bool(cfg.get("log_feature_plots", False)):
         raise NotImplementedError(
             "log_feature_plots (t-SNE) is not ported yet; see ROADMAP.md, "
@@ -320,6 +315,20 @@ class _Profiler:
             self.stop()
 
 
+def _emit_histograms(run_logger: RunLogger, hists, epoch: int) -> None:
+    """One ``histograms_ep<epoch>.npz`` in the run directory, two arrays a
+    parameter: ``<grad_hist|param_hist>/<path>:counts`` (bins,) and
+    ``...:edges`` (bins+1,) (egopack_tpu/train/driver.py:287-303)."""
+    keys = list(hists)
+    arrays = to_host([t for k in keys for t in hists[k]])
+    out = {}
+    for i, key in enumerate(keys):
+        out[f"{key}:counts"], out[f"{key}:edges"] = arrays[2 * i:2 * i + 2]
+    path = osp.join(run_logger.dir, f"histograms_ep{epoch}.npz")
+    np.savez(path, **out)
+    logger.info("Wrote %d histograms to %s", len(keys), path)
+
+
 def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
                   opt_state: topt.AdamState,
                   run_gen: torch.Generator) -> int:
@@ -358,14 +367,20 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                 multi_fn: Optional[Callable], lr_fn, run_gen,
                 run_logger, eval_steps, ckpt_dir: str, start_epoch: int,
                 should_validate: Callable[[int], bool],
-                banks: Optional[Banks] = None, force_all: bool = False):
+                banks: Optional[Banks] = None, force_all: bool = False,
+                hist_fn: Optional[Callable] = None):
     """Multiloader epochs with ``steps_per_call`` groups and a one-by-one
     tail, the per-epoch records, checkpoints and validation
     (reference main_temporal.py:300-404, main_egopack.py:316-448). With
     ``banks`` (phase 2) they are the steps' leading extra argument
     (egopack_tpu/train/driver.py:346). The steps' logs stay on the device
-    until the epoch's end. Returns (val_metrics, per-epoch stats)."""
+    until the epoch's end. Every ``log_histograms_every`` epochs,
+    ``hist_fn`` takes a snapshot on the epoch's first batch group with a
+    generator seeded as the epoch's steps (JAX: the first step's key,
+    egopack_tpu/train/driver.py:433-438). Returns (val_metrics, per-epoch
+    stats)."""
     spc = int(cfg.get("steps_per_call", 1))
+    hist_every = int(cfg.get("log_histograms_every", 0)) if hist_fn else 0
     device = system.device
     x_dtype = torch.bfloat16 if system.compute_dtype == torch.bfloat16 \
         else None
@@ -380,7 +395,8 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
 
     for epoch in range(start_epoch, cfg.num_epochs + 1):
         t0 = time.perf_counter()
-        generator = make_generator(draw_seed(run_gen), device)
+        step_seed = draw_seed(run_gen)
+        generator = make_generator(step_seed, device)
         val_generator = make_generator(draw_seed(run_gen), device)
         for t in TASKS:
             dsets[t]["dl_train"].set_epoch(epoch)
@@ -391,6 +407,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
         pending: list = []
         n_steps = 0
         data_s = 0.0  # the host's wait for each next batch group
+        first_batches = None  # kept for the histograms only
         groups = device_prefetch(iter(ml), put, copier.ready)
         while True:
             t_wait = time.perf_counter()
@@ -398,6 +415,8 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
             data_s += time.perf_counter() - t_wait
             if batches is None:
                 break
+            if hist_every and first_batches is None:
+                first_batches = batches
             profiler.step(n_steps, spc)
             if multi_fn is not None:
                 pending.append(batches)
@@ -430,6 +449,11 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
         run_logger.log({**{f"train/{t}/loss": v for t, v in losses.items()},
                         **{f"train/{k}": means[k] for k in norm_keys}},
                        step=epoch)
+        if hist_every and epoch % hist_every == 0 \
+                and first_batches is not None:
+            _emit_histograms(run_logger, hist_fn(
+                *extra, first_batches, make_generator(step_seed, device)),
+                epoch)
         if cfg.checkpoint.enable and epoch % cfg.checkpoint.every == 0:
             _save_checkpoint(ckpt_dir, epoch, system, opt_state, run_gen)
         if should_validate(epoch):
@@ -475,12 +499,17 @@ def train_mtl(cfg) -> Dict[str, Any]:
     opt_state = optimizer.init(system.params())
 
     log_norms = cfg.get("log_grad_norms", True)
-    step_fn = system.make_train_step(optimizer, active, log_norms=log_norms)
+    per_layer = bool(cfg.get("log_per_layer_norms", False))
+    step_fn = system.make_train_step(optimizer, active, log_norms=log_norms,
+                                     per_layer_norms=per_layer)
     spc = int(cfg.get("steps_per_call", 1))
     multi_fn = (system.make_train_step_multi(optimizer, active, spc,
-                                             log_norms=log_norms)
+                                             log_norms=log_norms,
+                                             per_layer_norms=per_layer)
                 if spc > 1 else None)
     eval_steps = make_eval_steps(system, task_weights)
+    hist_fn = (system.make_histogram_fn(active)
+               if int(cfg.get("log_histograms_every", 0)) > 0 else None)
 
     start_epoch = _maybe_resume(cfg, ckpt_dir, system, opt_state, run_gen)
     val_metrics, stats = _run_epochs(
@@ -490,7 +519,8 @@ def train_mtl(cfg) -> Dict[str, Any]:
         run_logger=run_logger, eval_steps=eval_steps, ckpt_dir=ckpt_dir,
         start_epoch=start_epoch,
         # validate in the last 5 epochs only (main_temporal.py:342-343)
-        should_validate=lambda epoch: epoch >= cfg.num_epochs - 5)
+        should_validate=lambda epoch: epoch >= cfg.num_epochs - 5,
+        hist_fn=hist_fn)
     logger.info("Feature gathers so far: %s", native.PATH_CALLS)
 
     result = {"system": system, "optimizer": optimizer,
@@ -593,15 +623,20 @@ def train_egopack(cfg) -> Dict[str, Any]:
     opt_state = optimizer.init(system.params())
 
     log_norms = cfg.get("log_grad_norms", True)
+    per_layer = bool(cfg.get("log_per_layer_norms", False))
     modes = dict(backprop_temporal_graph=cfg.backprop_temporal_graph,
                  temporal_graph_train_mode=cfg.temporal_graph_train_mode,
                  late_fusion=cfg.late_fusion)
     step_fn = system.make_egopack_train_step(optimizer, active, graphone,
-                                             log_norms=log_norms, **modes)
+                                             log_norms=log_norms,
+                                             per_layer_norms=per_layer,
+                                             **modes)
     spc = int(cfg.get("steps_per_call", 1))
     multi_fn = (system.make_egopack_train_step_multi(
-        optimizer, active, graphone, spc, log_norms=log_norms, **modes)
-        if spc > 1 else None)
+        optimizer, active, graphone, spc, log_norms=log_norms,
+        per_layer_norms=per_layer, **modes) if spc > 1 else None)
+    hist_fn = (system.make_histogram_fn(active, graphone=graphone, **modes)
+               if int(cfg.get("log_histograms_every", 0)) > 0 else None)
     eval_steps = make_eval_steps(system, task_weights, aux_tasks, graphone,
                                  cfg.late_fusion)
 
@@ -616,7 +651,7 @@ def train_egopack(cfg) -> Dict[str, Any]:
         start_epoch=start_epoch,
         # phase 2 validates every epoch (main_egopack.py:407-447)
         should_validate=lambda epoch: True, banks=banks,
-        force_all=bool(cfg.validate_all_tasks))
+        force_all=bool(cfg.validate_all_tasks), hist_fn=hist_fn)
     logger.info("Feature gathers so far: %s", native.PATH_CALLS)
 
     result = {"system": system, "optimizer": optimizer,

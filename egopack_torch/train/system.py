@@ -20,6 +20,7 @@ in place.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import interop
 from ..data.graphs import GraphSpec
 from ..device import DeviceLike, resolve_device
 from ..models.backbone import TemporalGraph
@@ -79,6 +81,79 @@ def lta_full_adjacency(base_adj: torch.Tensor, y: torch.Tensor,
 def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """L2 norm over every tensor (optax.global_norm semantics)."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+@functools.lru_cache(maxsize=8)
+def _layer_groups(names: Tuple[str, ...]) -> Dict[str, Tuple[str, ...]]:
+    """The subtrees of ``_subtree_norms`` over torch parameter names: the
+    flax tree's first two levels, rebuilt through ``interop``'s name map. A
+    top-level key whose children are all modules splits into one group per
+    child (``temporal_graph/pooling``, ``temporal_graph/gn0``, ...); one with
+    a leaf among its children (``graphone``) is one group."""
+    paths = {n: interop.flax_path(n, 0) for n in names}
+    tops: Dict[str, List[str]] = {}
+    for n in names:
+        tops.setdefault(paths[n][0], []).append(n)
+    groups: Dict[str, List[str]] = {}
+    for top, members in tops.items():
+        if all(len(paths[n]) >= 3 for n in members):
+            for n in members:
+                groups.setdefault(f"{top}/{paths[n][1]}", []).append(n)
+        else:
+            groups[top] = members
+    return {k: tuple(v) for k, v in groups.items()}
+
+
+def _subtree_norms(params: Dict[str, torch.Tensor],
+                   grads: Dict[str, torch.Tensor]) -> Logs:
+    """Per-layer L2 norms of the gradients and the parameters, one scalar
+    per subtree of ``_layer_groups``, with JAX's keys
+    (``grad_norm/temporal_graph/sage0``, ``param_norm/graphone``;
+    ``egopack_tpu/train/system.py:82-97``). JAX differentiates every leaf,
+    so a subtree outside the trainable set has a gradient norm of 0."""
+    out: Logs = {}
+    for key, members in _layer_groups(tuple(params)).items():
+        g = [grads[n] for n in members if n in grads]
+        out[f"grad_norm/{key}"] = (_global_norm(g) if g else
+                                   params[members[0]].new_zeros(()))
+        out[f"param_norm/{key}"] = _global_norm(
+            [params[n].detach() for n in members])
+    return out
+
+
+def histogram(values: torch.Tensor, bins: int = 64
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.histogram(values.ravel(), bins)`` in float32: ``bins`` equal
+    bins over [min, max] ([v - 0.5, v + 0.5] when every value is v), edges
+    by JAX's ``linspace`` (``lo * (1 - s) + hi * s`` for s = i / bins), each
+    value in the bin whose left edge it reaches, the last bin closed on the
+    right. Returns (counts (bins,) float32, edges (bins + 1,) float32).
+
+    ``torch.histc`` bins by arithmetic, widens a constant input by 1 on
+    each side and returns no edges; ``torch.histogram`` has no CUDA kernel.
+    So the bins come from ``torch.bucketize`` on the edges, as numpy's and
+    JAX's ``searchsorted`` give them."""
+    x = values.detach().float().reshape(-1)
+    lo, hi = x.min(), x.max()
+    flat = lo == hi
+    lo, hi = torch.where(flat, lo - 0.5, lo), torch.where(flat, hi + 0.5, hi)
+    s = torch.arange(bins, dtype=torch.float32, device=x.device) / bins
+    edges = torch.cat([lo * (1 - s) + hi * s, hi[None]])
+    idx = torch.bucketize(x, edges, right=True)
+    idx = torch.where(x == edges[-1], bins, idx)
+    counts = torch.bincount(idx, minlength=bins + 1)[1:bins + 1]
+    return counts.float(), edges
+
+
+def _tree_histograms(tensors: Dict[str, torch.Tensor], prefix: str,
+                     bins: int) -> Dict[str, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """``histogram`` of every tensor, keyed ``<prefix>/<flax path>``
+    (``grad_hist/temporal_graph/pooling/fc0/kernel``;
+    ``egopack_tpu/train/system.py:100-115``). A kernel's histogram does not
+    depend on its layout, so the torch ``weight`` needs no transpose."""
+    return {f"{prefix}/" + "/".join(interop.flax_path(n, t.ndim)):
+            histogram(t, bins) for n, t in tensors.items()}
 
 
 def _phase1_task_loss(name: str, logits, y: torch.Tensor) -> torch.Tensor:
@@ -383,9 +458,11 @@ class MultiTaskSystem:
         return loss_fn
 
     def _make_inner_step(self, optimizer: Adam,
-                         loss_fn: Callable[..., Tuple[torch.Tensor, Logs]]):
+                         loss_fn: Callable[..., Tuple[torch.Tensor, Logs]],
+                         per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
-        ``inner(opt_state, args, log_norms) -> logs``."""
+        ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
+        adds ``_subtree_norms`` to every step's logs."""
 
         def inner_step(opt_state: AdamState, args: tuple,
                        log_norms: bool) -> Logs:
@@ -398,10 +475,13 @@ class MultiTaskSystem:
             grads = torch.autograd.grad(total, [params[n] for n in names],
                                         materialize_grads=True)
             logs = {k: v.detach() for k, v in logs.items()}
-            if log_norms:
-                with torch.no_grad():
+            with torch.no_grad():
+                if log_norms:
                     logs["grad_norm"] = _global_norm(grads)
                     logs["param_norm"] = _global_norm(list(params.values()))
+                if per_layer_norms:
+                    logs.update(_subtree_norms(params,
+                                               dict(zip(names, grads))))
             optimizer.apply(dict(zip(names, grads)), opt_state, params)
             return logs
 
@@ -426,13 +506,17 @@ class MultiTaskSystem:
         return logs
 
     def make_train_step(self, optimizer: Adam, active: Tuple[str, ...],
-                        log_norms: bool = True):
+                        log_norms: bool = True,
+                        per_layer_norms: bool = False):
         """One step over the active tasks:
         ``step(opt_state, batches, generator, lr) -> logs``. Parameters and
         moments update in place; logs are device scalars (no host sync).
-        ``log_norms=False`` drops the global grad and param norms."""
+        ``log_norms=False`` drops the global grad and param norms;
+        ``per_layer_norms`` adds one of each per subtree
+        (``_subtree_norms``)."""
         inner = self._make_inner_step(optimizer,
-                                      self._make_phase1_loss_fn(active))
+                                      self._make_phase1_loss_fn(active),
+                                      per_layer_norms)
 
         def step(opt_state: AdamState, batches: Dict[str, Batch],
                  generator: Optional[torch.Generator], lr: float) -> Logs:
@@ -442,13 +526,16 @@ class MultiTaskSystem:
         return step
 
     def make_train_step_multi(self, optimizer: Adam, active: Tuple[str, ...],
-                              steps_per_call: int, log_norms=True):
+                              steps_per_call: int, log_norms=True,
+                              per_layer_norms: bool = False):
         """``steps_per_call`` sequential steps over as many batch groups:
         ``multi_step(opt_state, batch_list, generator, lr) -> logs`` with a
-        leading K axis on each log. ``log_norms="last"`` computes the norms
-        on the last step only (unstacked scalars)."""
+        leading K axis on each log. ``log_norms="last"`` computes the global
+        norms on the last step only (unstacked scalars); per-layer norms
+        are on every step."""
         inner = self._make_inner_step(optimizer,
-                                      self._make_phase1_loss_fn(active))
+                                      self._make_phase1_loss_fn(active),
+                                      per_layer_norms)
 
         def multi_step(opt_state: AdamState,
                        batch_list: Sequence[Dict[str, Batch]],
@@ -460,6 +547,33 @@ class MultiTaskSystem:
                                 for k in range(steps_per_call)], log_norms)
 
         return multi_step
+
+    def make_histogram_fn(self, active: Tuple[str, ...],
+                          graphone: Optional[GraphONE] = None,
+                          bins: int = 64, **phase2_kw):
+        """Gradient and weight histograms of every parameter from one batch
+        group, taken outside the train step at the driver's epoch cadence
+        (``egopack_tpu/train/system.py:527-556``): phase 1
+        ``hist_fn(batches, generator)`` when ``graphone`` is None, phase 2
+        ``hist_fn(banks, batches, generator)`` (``phase2_kw`` go to
+        ``make_egopack_loss_fn``). Returns ``{"grad_hist/<path>": (counts,
+        edges), "param_hist/<path>": ...}`` for every leaf; as in JAX, a
+        leaf outside the loss graph has a gradient of zeros."""
+        loss_fn = (self._make_phase1_loss_fn(active) if graphone is None
+                   else self.make_egopack_loss_fn(active, graphone,
+                                                  **phase2_kw))
+
+        def hist_fn(*args):
+            params = self.params()
+            total, _ = loss_fn(*args)
+            grads = torch.autograd.grad(total, list(params.values()),
+                                        materialize_grads=True)
+            with torch.no_grad():
+                return {**_tree_histograms(dict(zip(params, grads)),
+                                           "grad_hist", bins),
+                        **_tree_histograms(params, "param_hist", bins)}
+
+        return hist_fn
 
     # ---------------- eval forward (phase 1 & 2) ----------------
     def _interacted(self, graphone: GraphONE, aux: Sequence[str],
@@ -565,13 +679,15 @@ class MultiTaskSystem:
                                 active: Tuple[str, ...], graphone: GraphONE,
                                 backprop_temporal_graph: bool = True,
                                 temporal_graph_train_mode: bool = False,
-                                late_fusion: bool = True, log_norms=True):
+                                late_fusion: bool = True, log_norms=True,
+                                per_layer_norms: bool = False):
         """One EgoPack step:
         ``step(opt_state, banks, batches, generator, lr) -> logs``, in
-        place like the phase-1 step."""
+        place like the phase-1 step (``egopack_tpu/train/system.py:
+        687-723``)."""
         inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
             active, graphone, backprop_temporal_graph,
-            temporal_graph_train_mode, late_fusion))
+            temporal_graph_train_mode, late_fusion), per_layer_norms)
 
         def step(opt_state: AdamState, banks: Banks,
                  batches: Dict[str, Batch],
@@ -584,14 +700,15 @@ class MultiTaskSystem:
     def make_egopack_train_step_multi(self, optimizer: Adam,
                                       active: Tuple[str, ...],
                                       graphone: GraphONE, steps_per_call: int,
-                                      log_norms=True, **kw):
+                                      log_norms=True,
+                                      per_layer_norms: bool = False, **kw):
         """``steps_per_call`` EgoPack steps:
         ``multi_step(opt_state, banks, batch_list, generator, lr) -> logs``
         (same stacking and ``log_norms="last"`` as
         ``make_train_step_multi``); ``kw`` as for
         ``make_egopack_train_step``."""
         inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
-            active, graphone, **kw))
+            active, graphone, **kw), per_layer_norms)
 
         def multi_step(opt_state: AdamState, banks: Banks,
                        batch_list: Sequence[Dict[str, Batch]],

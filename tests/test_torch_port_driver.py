@@ -9,7 +9,18 @@ range; the artifact has JAX's name and meta, and JAX's ``load_artifact``
 reads it to leaves within rtol 1e-4 / atol 1e-5 of JAX's own. A run resumed
 from an epoch-1 checkpoint equals the straight run bit for bit. The CLI
 runs as ``python -m egopack_torch.main_temporal`` with the phase-1 command
-of the verify notes."""
+of the verify notes.
+
+The step options run against JAX's CLI too, from the same initial
+parameters: ``log_per_layer_norms`` (every per-layer norm of
+``metrics.jsonl`` at rtol 1e-4), ``log_histograms_every`` (the
+``histograms_ep<n>.npz`` files: the same arrays, whose values agree at
+rtol 1e-4 / atol 1e-5, so edges within that and counts that differ only
+by values that close to an edge) and
+``+model.propagate_dtype=bfloat16`` (losses and norms at one bf16 unit,
+rtol 2**-7: the forward passes round at the same places, but the backward
+passes sum some bf16 gradients in another order, one to four bf16 units
+apart in an element of a gradient)."""
 
 import json
 import logging
@@ -29,7 +40,9 @@ from egopack_torch.train import checkpoint as tckpt
 from egopack_torch.train import system as tsystem
 from egopack_tpu.train import checkpoint as jckpt
 from egopack_tpu.train import system as jsystem
-from torch_port_common import to_np
+from torch_port_common import (BF16_UNIT, assert_histogram_files_match,
+                               assert_train_records_match, by_epoch, records,
+                               to_np)
 
 torch.set_num_threads(1)
 
@@ -61,18 +74,23 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def records(run_dir):
-    with open(osp.join(run_dir, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
+def capture_jax_init(mp, init):
+    """Record JAX's initial parameters in ``init`` and start the port's
+    system from them."""
+    orig = jsystem.MultiTaskSystem.init_params
 
+    def capture(self, rng, feat_dim):
+        params = orig(self, rng, feat_dim)
+        init["params"] = to_np(params)
+        return params
 
-def by_epoch(recs, prefix):
-    out = {}
-    for r in recs:
-        vals = {k: v for k, v in r.items() if k.startswith(prefix)}
-        if vals:
-            out.setdefault(r["step"], {}).update(vals)
-    return out
+    def jax_init(self, generator):
+        self.load_state({k: v.to(self.device) for k, v in
+                         interop.from_flax(init["params"]).items()})
+        return self.params()
+
+    mp.setattr(jsystem.MultiTaskSystem, "init_params", capture)
+    mp.setattr(tsystem.MultiTaskSystem, "init_params", jax_init)
 
 
 @pytest.fixture(scope="module")
@@ -89,22 +107,8 @@ def runs(tmp_path_factory):
     level = port_logger.level
     port_logger.setLevel(logging.INFO)
     try:
-        orig = jsystem.MultiTaskSystem.init_params
-
-        def capture(self, rng, feat_dim):
-            params = orig(self, rng, feat_dim)
-            init["params"] = to_np(params)
-            return params
-
-        mp.setattr(jsystem.MultiTaskSystem, "init_params", capture)
+        capture_jax_init(mp, init)
         jres = jmain.main(overrides(root, tmp["jax"]))
-
-        def jax_init(self, generator):
-            self.load_state({k: v.to(self.device) for k, v in
-                             interop.from_flax(init["params"]).items()})
-            return self.params()
-
-        mp.setattr(tsystem.MultiTaskSystem, "init_params", jax_init)
         tres = tmain.main(overrides(root, tmp["port"], "device=cpu"))
         lines = list(handler.lines)
         # the resume check runs with dropout on, so that the restored
@@ -206,12 +210,8 @@ def test_unsupported_settings_raise(runs, monkeypatch):
                      "num_epochs=1", "save_model=False")
     for extra, match in ((["parallel.data=2"], "Queue 1 item 14"),
                          (["parallel.multihost=True"], "Queue 1 item 14"),
-                         (["log_per_layer_norms=True"], "Queue 1 item 7"),
-                         (["log_histograms_every=1"], "Queue 1 item 7"),
                          (["log_feature_plots=True"], "Queue 1 item 13"),
                          (["loader_processes=2"], "Queue 1 item 8"),
-                         (["+model.propagate_dtype=bfloat16"],
-                          "Queue 1 item 5"),
                          (["model.temporal_pooling.encoding=positional"],
                           "Queue 1 item 4")):
         with pytest.raises(NotImplementedError, match=match):
@@ -263,3 +263,48 @@ def test_cli_runs_the_verify_phase1_command(ego4d_root, tmp_path):
     for key in ("temporal_graph", "task/recognition", "task/oscc", "task/lta",
                 "task/pnr"):
         assert key in payload, key
+
+
+OPTIONS = {"norms_and_histograms": ("log_per_layer_norms=True",
+                                    "log_histograms_every=1"),
+           "bf16": ("+model.propagate_dtype=bfloat16",)}
+
+
+@pytest.fixture(scope="module")
+def option_runs(runs, tmp_path_factory):
+    """JAX's CLI and the port's with each set of ``OPTIONS``, two epochs
+    from the same initial parameters, dropout off."""
+    out = {}
+    mp = pytest.MonkeyPatch()
+    try:
+        init = {}
+        capture_jax_init(mp, init)
+        for name, extra in OPTIONS.items():
+            tmp = {k: str(tmp_path_factory.mktemp(f"{name}_{k}"))
+                   for k in ("jax", "port")}
+            out[name] = (
+                jmain.main(overrides(runs["root"], tmp["jax"], *extra,
+                                     "save_model=False")),
+                tmain.main(overrides(runs["root"], tmp["port"], *extra,
+                                     "save_model=False", "device=cpu")))
+    finally:
+        mp.undo()
+    return out
+
+
+def test_per_layer_norms_match_jax(option_runs):
+    jres, tres = option_runs["norms_and_histograms"]
+    ref = assert_train_records_match(tres, jres, rtol=1e-4)
+    assert "train/grad_norm/temporal_graph/sage0" in ref[1]
+    assert "train/param_norm/task/recognition/cls0" in ref[1]
+
+
+def test_histograms_match_jax(option_runs):
+    jres, tres = option_runs["norms_and_histograms"]
+    assert_histogram_files_match(tres["run_dir"], jres["run_dir"], (1, 2))
+
+
+def test_propagate_dtype_bf16_matches_jax(option_runs):
+    jres, tres = option_runs["bf16"]
+    assert tres["system"].backbone.propagate_dtype == torch.bfloat16
+    assert_train_records_match(tres, jres, rtol=BF16_UNIT)

@@ -15,7 +15,10 @@ the straight run bit for bit. ``egopack_torch.evaluate`` matches
 ``egopack_tpu.evaluate`` on JAX's artifacts of both phases and reproduces
 the port's own last validation exactly. The CLIs run as
 ``python -m egopack_torch.main_egopack`` and ``python -m
-egopack_torch.evaluate`` with the verify notes' phase-2 command."""
+egopack_torch.evaluate`` with the verify notes' phase-2 command.
+``log_per_layer_norms``, ``log_histograms_every`` and
+``+model.propagate_dtype=bfloat16`` each run against ``main_egopack``,
+with the tolerances of the phase-1 file."""
 
 import json
 import os
@@ -41,7 +44,9 @@ from egopack_torch.train import optim as toptim
 from egopack_tpu import evaluate as jevaluate
 from egopack_tpu.train import checkpoint as jckpt
 from egopack_tpu.train import optim as joptim
-from torch_port_common import to_np
+from torch_port_common import (BF16_UNIT, assert_histogram_files_match,
+                               assert_train_records_match, by_epoch, records,
+                               to_np)
 
 torch.set_num_threads(1)
 
@@ -75,20 +80,6 @@ def phase2(root, tmp, *extra):
                 "validate_all_tasks=True", "save_model=True", *extra)
 
 
-def records(run_dir):
-    with open(osp.join(run_dir, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
-
-
-def by_epoch(recs, prefix):
-    out = {}
-    for r in recs:
-        vals = {k: v for k, v in r.items() if k.startswith(prefix)}
-        if vals:
-            out.setdefault(r["step"], {}).update(vals)
-    return out
-
-
 def flat(tree, prefix=()):
     for key, value in tree.items():
         if isinstance(value, dict):
@@ -114,6 +105,29 @@ def assert_metrics_match(ours, ref, what):
             assert ours[k] == v, (what, k)
 
 
+def share_jax_init(mp, init):
+    """Record JAX's initial phase-2 parameters (after the merge and the
+    GraphONE init) and start the port's optimizer from them."""
+    orig_state = joptim.init_opt_state
+
+    def capture(optimizer, params, mesh):
+        init["params"] = to_np(params)
+        return orig_state(optimizer, params, mesh)
+
+    orig_init = toptim.Adam.init
+
+    def jax_init(self, params):
+        state = interop.from_flax(init["params"])
+        assert set(state) == set(params)
+        with torch.no_grad():
+            for n, v in state.items():
+                params[n].copy_(v)
+        return orig_init(self, params)
+
+    mp.setattr(joptim, "init_opt_state", capture)
+    mp.setattr(toptim.Adam, "init", jax_init)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("ego4d"))
@@ -129,24 +143,7 @@ def runs(tmp_path_factory):
     init = {}
     out = dict(root=root, tmp=tmp)
     try:
-        orig_state = joptim.init_opt_state
-
-        def capture(optimizer, params, mesh):
-            init["params"] = to_np(params)
-            return orig_state(optimizer, params, mesh)
-
-        orig_init = toptim.Adam.init
-
-        def jax_init(self, params):
-            state = interop.from_flax(init["params"])
-            assert set(state) == set(params)
-            with torch.no_grad():
-                for n, v in state.items():
-                    params[n].copy_(v)
-            return orig_init(self, params)
-
-        mp.setattr(joptim, "init_opt_state", capture)
-        mp.setattr(toptim.Adam, "init", jax_init)
+        share_jax_init(mp, init)
         for sfx, extra in (("", ()), ("_tb", ("graphone.freeze=False",
                                              "optimizer.lr=1e-2",
                                              "artifact_prefix=TB"))):
@@ -279,17 +276,45 @@ def test_errors(runs):
 @pytest.mark.parametrize("extra,match", [
     ("parallel.data=2", "Queue 1 item 14"),
     ("parallel.multihost=True", "Queue 1 item 14"),
-    ("log_per_layer_norms=True", "Queue 1 item 7"),
-    ("log_histograms_every=1", "Queue 1 item 7"),
     ("log_feature_plots=True", "Queue 1 item 13"),
     ("loader_processes=2", "Queue 1 item 8"),
-    ("+model.propagate_dtype=bfloat16", "Queue 1 item 5"),
     ("model.temporal_pooling.encoding=positional", "Queue 1 item 4"),
 ])
 def test_unsupported_settings_raise(runs, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(phase2(runs["root"], runs["tmp"]["port"], "device=cpu",
                           "num_epochs=1", "save_model=False", extra))
+
+
+@pytest.mark.parametrize("extra", ["log_per_layer_norms=True",
+                                   "log_histograms_every=1",
+                                   "+model.propagate_dtype=bfloat16"])
+def test_step_options_match_jax(runs, tmp_path_factory, extra):
+    """The option in both CLIs, two epochs from the phase-1 artifact and
+    JAX's initial phase-2 parameters."""
+    tmp = {}
+    for k in ("jax", "port"):
+        tmp[k] = str(tmp_path_factory.mktemp(k))
+        shutil.copytree(f"{runs['tmp']['jax']}/artifacts/{MTL}",
+                        f"{tmp[k]}/artifacts/{MTL}")
+    mp = pytest.MonkeyPatch()
+    try:
+        share_jax_init(mp, {})
+        jres = jmain_egopack.main(phase2(runs["root"], tmp["jax"], extra,
+                                         "save_model=False"))
+        tres = tmain.main(phase2(runs["root"], tmp["port"], extra,
+                                 "save_model=False", "device=cpu"))
+    finally:
+        mp.undo()
+    bf16 = "propagate_dtype" in extra
+    ref = assert_train_records_match(tres, jres, BF16_UNIT if bf16 else 1e-4)
+    if extra.startswith("log_per_layer_norms"):
+        assert "train/grad_norm/graphone" in ref[1]
+        assert ref[1]["train/grad_norm/task/recognition/proj_fc0"] == 0.0
+    elif extra.startswith("log_histograms"):
+        assert_histogram_files_match(tres["run_dir"], jres["run_dir"], (1, 2))
+    else:
+        assert tres["system"].backbone.propagate_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("cli", ["main_egopack", "evaluate"])

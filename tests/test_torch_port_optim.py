@@ -49,10 +49,14 @@ def test_reference_matches_pallas_leaf(shape, moments):
         m_dtype=jm_dtype, **HYPER))(jnp.asarray(p), jnp.asarray(g),
                                      jnp.asarray(m, jm_dtype),
                                      jnp.asarray(v, jm_dtype))
+    # the port updates its state in place, so it gets copies: on the CPU
+    # jnp.asarray keeps a 64-byte-aligned numpy buffer without copying, and
+    # the jitted call, dispatched asynchronously, may read m and v after the
+    # port has written them
     tm_dtype = getattr(torch, moments)
     tp, tg = torch.from_numpy(p.copy()), torch.from_numpy(g)
-    tm = torch.from_numpy(m).to(tm_dtype)
-    tv = torch.from_numpy(v).to(tm_dtype)
+    tm = torch.from_numpy(m.copy()).to(tm_dtype)
+    tv = torch.from_numpy(v.copy()).to(tm_dtype)
     tfa.fused_adam_reference(tp, tg, tm, tv, lr, bc1, bc2, **HYPER)
     mom_tol = F32_TOL if moments == "float32" else BF16_TOL
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **F32_TOL)

@@ -2,6 +2,9 @@
 systems (phase 1 and phase 2) at a small size and the conversions between
 their numpy-leaved trees and the port's tensors."""
 
+import json
+import os.path as osp
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +25,7 @@ P_PAD, FILL = 128, 100  # phase-2 test banks: 100 valid rows of 128
 # rtol 1e-4 / atol 1e-5 (sums run in another order in the two frameworks)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 MODULE_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_UNIT = 2.0 ** -7  # one unit in the last place of a bf16 in [1, 2)
 
 
 def to_np(tree):
@@ -113,3 +117,73 @@ def torch_phase2(jax_params, banks, k=8, freeze=True, residual=False):
     system.attach_graphone(graphone, None if freeze else tb)
     system.load_state(interop.from_flax(to_np(jax_params)))
     return system, graphone, tb
+
+
+# ---- the drivers' records ----
+
+def records(run_dir):
+    with open(osp.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def by_epoch(recs, prefix):
+    out = {}
+    for r in recs:
+        vals = {k: v for k, v in r.items() if k.startswith(prefix)}
+        if vals:
+            out.setdefault(r["step"], {}).update(vals)
+    return out
+
+
+def assert_train_records_match(ours, ref, rtol):
+    """Two driver runs' per-epoch ``train/`` records (losses, norms): the
+    same keys for epochs 1 and 2, the values at ``rtol``."""
+    ours = by_epoch(records(ours["run_dir"]), "train/")
+    ref = by_epoch(records(ref["run_dir"]), "train/")
+    assert sorted(ours) == sorted(ref) == [1, 2]
+    for epoch in ref:
+        assert set(ours[epoch]) == set(ref[epoch])
+        for k, v in ref[epoch].items():
+            np.testing.assert_allclose(ours[epoch][k], v, rtol=rtol,
+                                       atol=1e-7, err_msg=f"epoch {epoch} {k}")
+    return ref
+
+
+def assert_counts_agree(ours, ref, tol, what=""):
+    """Two histograms ``(counts, edges)`` of values that differ by at most
+    ``tol`` each: the totals are equal, and below each of our edges ``e``
+    we count no fewer values than the reference has below ``e - tol`` and
+    no more than it has below ``e + tol`` (read at its own edges, which
+    bounds them from outside)."""
+    (oc, oe), (rc, re) = ours, ref
+    assert oc.sum() == rc.sum(), what
+    below_o = np.concatenate([[0], np.cumsum(oc)])
+    below_r = np.concatenate([[0], np.cumsum(rc)])
+    for i in range(1, len(oe) - 1):
+        j = np.searchsorted(re, oe[i] - tol, side="right") - 1
+        k = np.searchsorted(re, oe[i] + tol, side="left")
+        lo = below_r[j] if j >= 0 else 0
+        hi = below_r[k] if k < len(re) else rc.sum()
+        assert lo <= below_o[i] <= hi, (what, i, lo, below_o[i], hi)
+
+
+def assert_histogram_files_match(ours_dir, ref_dir, epochs):
+    """Both packages' snapshots: the same arrays; parameters and
+    gradients agree at rtol 1e-4 / atol 1e-5, so the edges do and the
+    counts agree within that tolerance (``assert_counts_agree``)."""
+    for epoch in epochs:
+        name = f"histograms_ep{epoch}.npz"
+        with np.load(osp.join(ours_dir, name)) as o, \
+                np.load(osp.join(ref_dir, name)) as r:
+            assert set(o.files) == set(r.files) and r.files
+            for key in r.files:
+                assert o[key].dtype == r[key].dtype == np.float32, key
+                if not key.endswith(":counts"):
+                    continue
+                stem = key[:-len(":counts")]
+                re = r[stem + ":edges"]
+                tol = 1e-4 * np.abs(re).max() + 1e-5
+                np.testing.assert_allclose(o[stem + ":edges"], re, rtol=0,
+                                           atol=tol, err_msg=stem)
+                assert_counts_agree((o[key], o[stem + ":edges"]),
+                                    (r[key], re), tol, stem)
