@@ -24,7 +24,9 @@ Phases, any failure exits non-zero and prints no result:
              zeroed just before and read just after. Finite losses, moved
              trainable parameters, an unchanged OSCC head. Then one step with
              dropout off against the same step with the plain Adam, and a
-             small model on the card against the same model on the CPU.
+             small model on the card against the same model on the CPU, and
+             a TRN pooling module with each encoding (learnt, positional,
+             temporal) on the card against the CPU.
 4. driver - the phase-1 CLI (``egopack_torch.main_temporal.main``) at
              full width on a seeded Ego4D-layout fixture (1536-d features,
              115 verbs, 478 nouns, 15 AR steps an epoch at batch 16): 3
@@ -46,13 +48,38 @@ Phases, any failure exits non-zero and prints no result:
              launch per optimizer step, one cosine_knn launch per optimizer
              step and per OSCC validation batch, an OSCC meter block, the
              artifact's banks and masks equal to the banks built; then a
-             second call with num_epochs=4 that resumes at epoch 4. Prints
-             ms per optimizer step over epochs 2-3, the wait for data and
-             the prototype sweep's seconds.
+             second call with num_epochs=4 and checkpoint.async_write=True
+             that resumes at epoch 4 and whose epoch-4 checkpoint, written
+             in the background, reads back equal to the state the call
+             ended with. Prints ms per optimizer step over epochs 2-3, the
+             wait for data and the prototype sweep's seconds.
 6. evaluate - ``egopack_torch.evaluate`` cold on MTL_oscc: the driver's
              last OSCC validation again (accuracy equal, loss within rtol
              1e-5), one cosine_knn launch per validation batch.
-7. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
+7. pool    - the phase-1 CLI with loader_processes=2 on the driver's fixture
+             and seed, counts zeroed just before and read just after: its
+             per-epoch losses and norms equal the driver's (bit for bit is
+             reported; rtol 1e-5 is required), one fused_adam launch per
+             optimizer step, the native gather in use by the counts the
+             workers send back, the pools stopped at the end. Then ms per
+             optimizer step over epochs 2-3 with loader_processes 0, 2 and
+             4 in turns (0, 2, 4, 4, 2, 0), each run's losses held to the
+             driver's again; the loop's device idle share with 0 and 2
+             workers over the driver's profiled window (profile_dir, the
+             CLI in a process of its own); then one epoch with
+             EGOPACK_POOL_CTX=spawn.
+8. predict - ``egopack_torch.predict`` on test_unannotated: LTA, OSCC and
+             PNR from MTL_ar-lta-pnr (one prediction for every window, K=5
+             sequences of 20 a head, prob_change in [0, 1], PNR frames
+             within their windows) and OSCC from MTL_oscc, counts zeroed
+             just before and read just after (one cosine_knn launch per
+             batch); then OSCC from MTL_oscc on val, whose decisions'
+             accuracy equals the cold evaluation's.
+9. tools   - ``egopack_torch.aggregate`` over the driver's run directories
+             gives each run's last values; ``python -m egopack_torch.sweep
+             experiments/mtl.yaml --dry-run`` prints 4 commands of
+             ``-m egopack_torch.main_temporal``.
+10. egopack - the phase-2 novel-OSCC EgoPack step at full width: the
              phase-1 state of the driver's artifact (``load_artifact``, then
              ``interop.from_flax``) merged into the phase-2 system, banks
              built on the card from 8 seeded AR batches of 256 clips, then 3
@@ -60,9 +87,11 @@ Phases, any failure exits non-zero and prints no result:
              (counts zeroed just before, read just after: one launch of each
              per step). Finite losses, moved trainable leaves, the other
              heads and the banks bit-identical. One step with the plain kNN
-             from the same state, the eval step, and a small phase-2 model on
-             the card against the CPU.
-8. bench   - ``python -m egopack_torch.bench`` in a process of its own at
+             from the same state, the eval step, a checkpoint of the state
+             written in the background while 3 more fused-Adam steps run
+             (equal bit for bit to a synchronous one), and a small phase-2
+             model on the card against the CPU.
+11. bench   - ``python -m egopack_torch.bench`` in a process of its own at
              full width and the bench's defaults (bf16 compute, float32
              moments) but steps_per_call 8 and 2 windows: both JSON lines
              parse with bench.py's keys, ``tflops`` above 0 and ``0 < mfu <
@@ -70,19 +99,21 @@ Phases, any failure exits non-zero and prints no result:
              process, counts zeroed just before and read just after: 8
              fused_adam launches in line 1, 8 fused_adam and 8 cosine_knn
              in line 2.
-9. bf16    - one phase-1 and one phase-2 step at full width with
+12. bf16    - one phase-1 and one phase-2 step at full width with
              compute_dtype=bfloat16, then with propagate_dtype=bfloat16,
              against the float32 steps from the same state: relative loss
              gaps printed, each below 2**-5. Small models of both settings,
              3 steps, card against CPU (bf16 compute: rtol 1e-4 / atol
              1e-5; bf16 propagation: losses within one bf16 unit, rtol
              2**-7, parameters within 2 lr a step). One phase-1 step of
-             each setting under ``torch.profiler``: busy time, idle share,
+             each setting under ``torch.profiler``, in three windows, each
+             after a step in the same window that is not read (the profiler
+             has lost a window's first events): busy time, idle share,
              device events, top kernels, and the GEMM kernels by their
-             operands' type; the bf16 steps must run GEMMs on bf16 operands
-             (cuBLAS on the tensor cores, float32 output), the float32 step
-             none.
-10. numbers - ms per step; each kernel's device time, launches and bound;
+             operands' type from the window with the most events; in any
+             window the bf16 steps must run GEMMs on bf16 operands (cuBLAS on
+             the tensor cores, float32 output), the float32 step in none.
+13. numbers - ms per step; each kernel's device time, launches and bound;
              the plain versions' times; one library call each as yardstick
              (timed only; the port never calls it):
              ``torch.optim.Adam(fused=True)`` and ``torch.topk`` over the
@@ -106,27 +137,34 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import egopack_torch
-from egopack_torch import interop
+from egopack_torch import aggregate, interop
 from egopack_torch.data.synthetic import generate_ego4d_fixture
 from egopack_torch.device import make_generator
 from egopack_torch.entry import (ACTIVE, AUX_TASKS, N_NOUNS, N_VERBS,
                                  build_egopack_step, build_mtl_step,
                                  build_system, synthetic_batches)
+from egopack_torch.config import compose, default_config_dir, instantiate
 from egopack_torch.evaluate import main as evaluate_main
 from egopack_torch.io import native
 from egopack_torch.main_egopack import main as egopack_main
 from egopack_torch.main_temporal import main as train_main
+from egopack_torch.models.pooling import ENCODINGS, TRNPooling
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops.knn import prototype_topk
+from egopack_torch.predict import main as predict_main
 from egopack_torch.profiling import (busy_us, device_events, fp32_peak,
-                                     hbm_bytes_per_s, mean_us, tf32_peak)
+                                     hbm_bytes_per_s, mean_us, tf32_peak,
+                                     union_us)
 from egopack_torch.train import optim as topt
-from egopack_torch.train.checkpoint import load_artifact
+from egopack_torch.train.checkpoint import (latest_state, load_artifact,
+                                            restore_state, save_state,
+                                            wait_for_saves)
 from egopack_torch.train.system import CKPT_KEYS
 
 HERE = Path(__file__).resolve().parent
@@ -424,6 +462,22 @@ def phase_small_vs_cpu(dev) -> None:
         torch.testing.assert_close(pg[n].cpu(), pc[n], **tol)
     log("train: small model, 3 steps, card against CPU: losses, norms and "
         "parameters agree (rtol 1e-4, atol 1e-5)")
+    x = torch.randn(2, 5, 3, 16, generator=torch.Generator().manual_seed(4))
+    for encoding in ENCODINGS:
+        pool_cpu = TRNPooling(16, 32, 3, hidden_size=32, encoding=encoding,
+                              device="cpu")
+        gen = make_generator(5, "cpu")
+        for m in pool_cpu.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+        pool_gpu = TRNPooling(16, 32, 3, hidden_size=32, encoding=encoding,
+                              device=dev)
+        pool_gpu.load_state_dict(pool_cpu.state_dict())
+        with torch.no_grad():
+            torch.testing.assert_close(pool_gpu(x.to(dev)).cpu(), pool_cpu(x),
+                                       **tol, msg=lambda m: f"{encoding}: {m}")
+    log(f"train: TRN pooling with each encoding ({', '.join(ENCODINGS)}), "
+        "card against CPU: outputs agree (rtol 1e-4, atol 1e-5)")
 
 
 def driver_overrides(root: str, tmp: str, epochs: int):
@@ -439,9 +493,27 @@ def driver_overrides(root: str, tmp: str, epochs: int):
             f"checkpoint.dir={tmp}/checkpoints"]
 
 
-def phase_driver(tmp: str, card: str):
-    """The phase-1 CLI at full width; returns (the artifact's torch state,
-    fused_adam launches, optimizer steps, ms per step over epochs 2-3)."""
+def train_records(result) -> dict:
+    """{epoch: {key: value}} of a driver run's ``train/`` records."""
+    with open(f"{result['run_dir']}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    return {r["step"]: {k: v for k, v in r.items() if k.startswith("train/")}
+            for r in records if any(k.startswith("train/") for k in r)}
+
+
+def epoch_ms(stats) -> tuple:
+    """ms per optimizer step over epochs 2 on, and the part of it spent
+    waiting for data."""
+    timed = [s for s in stats if s["epoch"] >= 2]
+    steps = sum(s["steps"] for s in timed)
+    return (sum(s["train_s"] for s in timed) / steps * 1e3,
+            sum(s["data_s"] for s in timed) / steps * 1e3)
+
+
+def phase_driver(tmp: str, card: str) -> dict:
+    """The phase-1 CLI at full width; returns the artifact's torch state,
+    fused_adam launches, optimizer steps, ms per step over epochs 2-3, the
+    fixture's root and the per-epoch train records."""
     t0 = time.perf_counter()
     root = generate_ego4d_fixture(f"{tmp}/ego4d", feature_dim=FEAT,
                                   n_videos=DRIVER_VIDEOS, n_verbs=N_VERBS,
@@ -490,8 +562,8 @@ def phase_driver(tmp: str, card: str):
         require(torch.equal(v, params[n].detach().cpu()),
                 f"artifact leaf {n} differs from the trained parameter")
     timed = [s for s in stats if s["epoch"] >= 2]
-    ms_step = (sum(s["train_s"] for s in timed)
-               / sum(s["steps"] for s in timed) * 1e3)
+    ms_step = epoch_ms(stats)[0]
+    records = train_records(result)
     last = {k: round(v, 6) for k, v in losses[-1].items()
             if k.startswith("train/")}
     log(f"driver: {DRIVER_EPOCHS} epochs, {steps} optimizer steps in "
@@ -515,7 +587,9 @@ def phase_driver(tmp: str, card: str):
     del result, again
     payload, _ = load_artifact(f"{tmp}/artifacts", ARTIFACT)
     payload.pop("epoch")
-    return interop.from_flax(payload), launches, steps, ms_step
+    return {"state": interop.from_flax(payload), "launches": launches,
+            "steps": steps, "ms_step": ms_step, "root": root,
+            "records": records}
 
 
 def egopack_overrides(root: str, tmp: str, epochs: int):
@@ -594,10 +668,7 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
                                 b.mask.cpu()),
                 f"artifact bank {t} differs from the bank built")
     timed = [s for s in stats if s["epoch"] >= 2]
-    ms_step = (sum(s["train_s"] for s in timed)
-               / sum(s["steps"] for s in timed) * 1e3)
-    data_ms = (sum(s["data_s"] for s in timed)
-               / sum(s["steps"] for s in timed) * 1e3)
+    ms_step, data_ms = epoch_ms(stats)
     bank = banks["ar"]
     last = {k: round(v, 6) for k, v in losses[-1].items()
             if k.startswith("train/")}
@@ -617,13 +688,32 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
         f"{[s['steps'] for s in timed]} steps), of which {data_ms!r} ms "
         f"waiting for data ({[round(s['data_s'], 3) for s in timed]} s); "
         f"prototype sweep {result['sweep_s']!r} s; on {card}")
-    again = egopack_main(egopack_overrides(root, tmp, DRIVER_EPOCHS + 1))
+    again = egopack_main(egopack_overrides(root, tmp, DRIVER_EPOCHS + 1)
+                         + ["checkpoint.async_write=True"])
     require(again["start_epoch"] == DRIVER_EPOCHS + 1
             and [s["epoch"] for s in again["epochs"]] == [DRIVER_EPOCHS + 1],
             f"the second call started at epoch {again['start_epoch']}")
+    # its epoch-4 checkpoint was written in the background; nothing trains
+    # after an epoch's checkpoint (validation only), so what resume reads
+    # must be the state the run ended with, bit for bit
+    ckpt_dir = f"{tmp}/checkpoints/egopack_{EGOPACK_ARTIFACT}"
+    last_ckpt = latest_state(ckpt_dir)
+    require(last_ckpt == DRIVER_EPOCHS + 1, f"newest checkpoint {last_ckpt}")
+    saved = restore_state(ckpt_dir, last_ckpt, torch.device("cpu"))
+    opt = again["opt_state"]
+    require(saved["count"] == opt.count and saved["epoch"] == last_ckpt,
+            f"async checkpoint count {saved['count']}, epoch {saved['epoch']}")
+    for key, mine in (("params", again["system"].params()), ("mu", opt.mu),
+                      ("nu", opt.nu)):
+        require(sorted(saved[key]) == sorted(mine), f"async {key} leaves")
+        for n, v in mine.items():
+            require(torch.equal(saved[key][n], v.detach().cpu()),
+                    f"async checkpoint {key} {n} differs from the state")
     log(f"egopack_driver: a second call with num_epochs={DRIVER_EPOCHS + 1} "
-        f"resumed at epoch {again['start_epoch']} from the full-state "
-        f"checkpoint (sweep {again['sweep_s']!r} s)")
+        f"and checkpoint.async_write=True resumed at epoch "
+        f"{again['start_epoch']} from the full-state checkpoint (sweep "
+        f"{again['sweep_s']!r} s); its epoch-{last_ckpt} checkpoint, written "
+        "in the background, reads back equal to the state it ended with")
     return {"root": root, "adam_launches": adam_launches,
             "knn_launches": knn_launches, "steps": steps,
             "val_batches": val_batches, "ms_step": ms_step,
@@ -631,9 +721,9 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
             "last_val": again["val_metrics"]["oscc"]}
 
 
-def phase_evaluate(tmp: str, ego: dict) -> int:
+def phase_evaluate(tmp: str, ego: dict) -> tuple:
     """``egopack_torch.evaluate`` cold on the phase-2 artifact; returns its
-    kNN launches."""
+    kNN launches and its OSCC metrics."""
     tfa.fused_adam.launches = 0
     tkt.cosine_knn.launches = 0
     out = f"{tmp}/metrics.json"
@@ -659,7 +749,7 @@ def phase_evaluate(tmp: str, ego: dict) -> int:
         f"{cold['accuracy']!r}, loss {cold['loss']!r} (the driver's last "
         f"validation: {last['accuracy']!r}, {last['loss']!r}); cosine_knn "
         f"launches {knn_launches} in {ego['val_batches']} validation batches")
-    return knn_launches
+    return knn_launches, cold
 
 
 def phase_numbers(mtl, dev, card: str) -> dict:
@@ -861,8 +951,49 @@ def phase_egopack(mtl, loaded, dev, card: str):
             f"eval logits {logits}")
     log(f"egopack: eval step OSCC, GraphONE + late fusion: logits "
         f"{tuple(logits.shape)} finite, post features {tuple(post.shape)}")
+    check_async_snapshot(ego)
     feats_m = (feats, values, masks)
     return ego, step_ms, knn_launches, steps, feats_m
+
+
+def check_async_snapshot(ego) -> None:
+    """``save_state(async_write=True)`` of the full-width phase-2 state,
+    then three more steps, whose fused Adam updates the parameters and
+    moments in place, before the write is waited for: the checkpoint reads
+    back equal, bit for bit, to a synchronous save of the same state."""
+    def state():
+        return {"params": {n: p.detach()
+                           for n, p in ego.system.params().items()},
+                "mu": ego.opt_state.mu, "nu": ego.opt_state.nu,
+                "count": ego.opt_state.count, "epoch": 1}
+
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        save_state(f"{d}/sync", 1, state())
+        t0 = time.perf_counter()
+        save_state(f"{d}/async", 1, state(), async_write=True)
+        call_s = time.perf_counter() - t0
+        for _ in range(3):
+            ego(LR_EGO)
+        torch.cuda.synchronize()
+        wait_for_saves()
+        a = restore_state(f"{d}/async", 1, cpu)
+        b = restore_state(f"{d}/sync", 1, cpu)
+    require(a["count"] == b["count"] == ego.opt_state.count - 3,
+            f"async checkpoint count {a['count']}")
+    moved = 0
+    for key in ("params", "mu", "nu"):
+        require(sorted(a[key]) == sorted(b[key]), f"async {key} leaves")
+        for n in b[key]:
+            require(torch.equal(a[key][n], b[key][n]),
+                    f"async checkpoint {key} {n} differs from the sync one")
+        now = state()[key]
+        moved += sum(not torch.equal(b[key][n], now[n].cpu()) for n in b[key])
+    require(moved > 0, "the steps after the save moved nothing")
+    log(f"egopack: checkpoint of the full-width state written in the "
+        f"background (the call took {call_s:.2f} s) while 3 more fused-Adam "
+        f"steps ran: equal bit for bit to the synchronous one ({moved} "
+        "tensors moved after the save)")
 
 
 def phase_small_egopack_vs_cpu(dev) -> None:
@@ -1038,15 +1169,19 @@ def phase_bench(card: str) -> dict:
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
 
 
+MEASURED = "chip_smoke.measured_step"  # the profiled step's annotation
+
+
 def gemm_kernels(prof, path: str) -> dict:
     """The kernels launched by matrix products in a ``torch.profiler``
-    trace recorded with ``record_shapes``, keyed by (the op's first operand
-    type, its first two operands' shapes, kernel name): [launches, device
-    us]. The exported Chrome trace ties each kernel to its op by the op's
-    external id."""
+    trace recorded with ``record_shapes``, from the ``MEASURED`` annotation
+    on, keyed by (the op's first operand type, its first two operands'
+    shapes, kernel name): [launches, device us]. The exported Chrome trace
+    ties each kernel to its op by the op's external id."""
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    start = min(e["ts"] for e in events if e.get("name") == MEASURED)
     ops = {}
     for e in events:
         args = e.get("args", {})
@@ -1057,7 +1192,7 @@ def gemm_kernels(prof, path: str) -> dict:
                 json.dumps(args.get("Input Dims", [])[:2]))
     out: dict = {}
     for e in events:
-        if e.get("cat") != "kernel":
+        if e.get("cat") != "kernel" or e["ts"] < start:
             continue
         ext = e.get("args", {}).get("External id")
         if ext in ops:
@@ -1067,18 +1202,34 @@ def gemm_kernels(prof, path: str) -> dict:
     return out
 
 
-def profile_step(step, lr: float, path: str):
-    """One warm step, then one step under ``torch.profiler`` (CPU and CUDA,
-    shapes recorded): (GEMM kernels by operand type, device busy ms, the
-    idle share of the span from the step's first kernel to its last, device
-    events, the top kernels by device ms)."""
+def profile_step(step, lr: float, path: str, windows: int = 3):
+    """One warm step, then ``windows`` profiler windows (CPU and CUDA,
+    shapes recorded), each of two steps of which the second, annotated
+    ``MEASURED``, is the one read: (GEMM kernels by operand type, the GEMM
+    kernels seen in any window, device busy ms, the idle share of the span
+    from the step's first kernel to its last, device events, the top
+    kernels by device ms). The profiler has lost a window's first device
+    events (a step's first 8 kernels, its first GEMM among them, in two
+    runs), so each window starts with a step that is not read; the numbers
+    come from the window with the most device events."""
     step(lr)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        step(lr)
-        torch.cuda.synchronize()
-    events = device_events(prof)
+    taken = []
+    for w in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step(lr)
+            torch.cuda.synchronize()
+            with record_function(MEASURED):
+                step(lr)
+                torch.cuda.synchronize()
+        start = min(e.time_range.start for e in prof.events()
+                    if e.name == MEASURED)
+        events = [e for e in device_events(prof)
+                  if e.time_range.start >= start and e.name != MEASURED]
+        taken.append((events, gemm_kernels(prof, f"{path}.{w}")))
+    seen = set().union(*(gemms for _, gemms in taken))
+    events, gemms = max(taken, key=lambda t: len(t[0]))
     require(bool(events), "the profiler recorded no device events")
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
@@ -1088,8 +1239,7 @@ def profile_step(step, lr: float, path: str):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return gemm_kernels(prof, path), busy / 1e3, 1.0 - busy / span, \
-        len(events), top
+    return gemms, seen, busy / 1e3, 1.0 - busy / span, len(events), top
 
 
 def loss_gap(a: dict, b: dict, key: str) -> float:
@@ -1161,10 +1311,10 @@ def phase_bf16(dev, card: str, tmp: str) -> None:
                       {"compute_dtype": torch.bfloat16,
                        "propagate_dtype": torch.bfloat16})):
         step = build_mtl_step(BATCH, FEAT, HIDDEN, device=dev, **kw)
-        gemms, busy, idle, n_events, top = profile_step(
+        gemms, seen, busy, idle, n_events, top = profile_step(
             step, LR, f"{tmp}/trace_{name}.json")
         del step
-        bf16 = {k: v for k, v in gemms.items() if "BFloat16" in k[0]}
+        bf16 = sorted(k for k in seen if "BFloat16" in k[0])
         log(f"bf16: phase-1 step, {name}: device busy {busy!r} ms, idle "
             f"share {idle!r}, {n_events} device events; top kernels "
             f"{json.dumps([[n[:90], ms] for n, ms in top])}")
@@ -1172,9 +1322,255 @@ def phase_bf16(dev, card: str, tmp: str) -> None:
             log(f"bf16:   GEMM {dtype} {dims} x{n} {us!r} us {kname[:100]}")
         if name != "float32":
             require(bf16, f"{name}: no matrix product with bf16 operands "
-                    f"launched a kernel: {sorted(gemms)}")
+                    f"launched a kernel: {sorted(seen)}")
         else:
-            require(not bf16, f"float32 step ran bf16 GEMMs: {sorted(bf16)}")
+            require(not bf16, f"float32 step ran bf16 GEMMs: {bf16}")
+
+
+POOL_TURNS = (0, 2, 4, 4, 2, 0)  # loader_processes of the timed runs
+
+
+def pool_overrides(root: str, tmp: str, workers: int, epochs: int):
+    """The driver phase's command with ``loader_processes=workers``, without
+    its checkpoints and artifact."""
+    return driver_overrides(root, tmp, epochs) + [
+        f"loader_processes={workers}", "save_model=False",
+        "checkpoint.enable=False", f"output_dir={tmp}/outputs_pool"]
+
+
+def loaders_closed(result) -> bool:
+    return all(getattr(d[k], "_procs", []) == []
+               for d in result["dsets"].values() for k in ("dl_train", "dl_val"))
+
+
+def same_records(ours: dict, ref: dict, what: str) -> bool:
+    """Whether two runs' per-epoch records are equal bit for bit; they must
+    agree at rtol 1e-5 at least."""
+    require(sorted(ours) == sorted(ref), f"{what}: epochs {sorted(ours)}")
+    for epoch, rec in ref.items():
+        require(set(ours[epoch]) == set(rec), f"{what}: keys of {epoch}")
+        for k, v in rec.items():
+            require(math.isclose(ours[epoch][k], v, rel_tol=1e-5),
+                    f"{what}: epoch {epoch} {k} {ours[epoch][k]!r} vs {v!r}")
+    return ours == ref
+
+
+def trace_idle_share(path: str) -> dict:
+    """Busy ms, span ms and idle share of the card in a Chrome trace of
+    ``torch.profiler``: the union of its kernels, copies and fills against
+    the time from the first to the last of them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if str(e.get("cat", "")).lower()
+                   in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    require(len(spans) > 0, f"no device events in {path}")
+    busy = union_us(spans)
+    span = max(b for _, b in spans) - spans[0][0]
+    return {"busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span, "device_events": len(spans)}
+
+
+def phase_pool(tmp: str, drv: dict, card: str) -> dict:
+    """The phase-1 CLI with ``loader_processes=2`` on the driver phase's
+    fixture and seed: its epochs equal the in-process run's, fused Adam
+    launches once per optimizer step, and the gathers the workers made reach
+    the counts. Then ms per optimizer step over epochs 2-3 with 0, 2 and 4
+    worker processes a loader, in turns, the device's idle share of the
+    loop with 0 and 2, and one epoch with ``EGOPACK_POOL_CTX=spawn``."""
+    tfa.fused_adam.launches = 0
+    calls0 = dict(native.PATH_CALLS)
+    result = train_main(pool_overrides(drv["root"], tmp, 2, DRIVER_EPOCHS))
+    torch.cuda.synchronize()
+    launches = tfa.fused_adam.launches
+    steps = sum(s["steps"] for s in result["epochs"])
+    gathers = {k: native.PATH_CALLS[k] - calls0[k] for k in calls0}
+    require(launches == steps == drv["steps"],
+            f"fused_adam launched {launches} times in {steps} optimizer steps")
+    require(gathers["native"] > 0 and gathers["numpy"] == 0,
+            f"feature gathers by path, summed from the workers: {gathers}")
+    require(loaders_closed(result), "worker pools left running")
+    exact = same_records(train_records(result), drv["records"], "pool")
+    log(f"pool: loader_processes=2, {DRIVER_EPOCHS} epochs, {steps} optimizer "
+        f"steps: fused_adam launches {launches}; feature gathers in the "
+        f"workers {json.dumps(gathers)}; per-epoch losses and norms "
+        f"{'equal bit for bit to' if exact else 'within rtol 1e-5 of'} the "
+        "in-process run's; pools stopped at the end")
+    del result
+
+    ms = {w: [] for w in sorted(set(POOL_TURNS))}
+    data = {w: [] for w in ms}
+    for w in POOL_TURNS:
+        result = train_main(pool_overrides(drv["root"], tmp, w, DRIVER_EPOCHS))
+        torch.cuda.synchronize()
+        same_records(train_records(result), drv["records"], f"pool {w}")
+        step_ms, data_ms = epoch_ms(result["epochs"])
+        ms[w].append(step_ms)
+        data[w].append(data_ms)
+        del result
+    log(f"pool: ms per optimizer step over epochs 2-{DRIVER_EPOCHS} (wall "
+        f"clock, loading included) by loader_processes, in turns "
+        f"{list(POOL_TURNS)}: {json.dumps(ms)}; of which waiting for data "
+        f"{json.dumps(data)}; on {card}")
+    # the traced runs are the CLI in processes of their own, as a user runs
+    # it with profile_dir; their profiler sessions stay out of this process,
+    # whose own profiler windows come later
+    idle = {}
+    for w in (0, 2):
+        trace = f"{tmp}/pool_trace_{w}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "egopack_torch.main_temporal",
+             *pool_overrides(drv["root"], tmp, w, 1), f"profile_dir={trace}"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"traced run exited {proc.returncode}: "
+                f"{proc.stderr[-3000:]}")
+        idle[w] = trace_idle_share(f"{trace}/trace.json")
+    log(f"pool: the loop's device idle share over the driver's profiled "
+        f"window (steps 2-5 of epoch 1 under torch.profiler, which slows the "
+        f"host) by loader_processes: {json.dumps(idle)}")
+
+    os.environ["EGOPACK_POOL_CTX"] = "spawn"
+    try:
+        t0 = time.perf_counter()
+        result = train_main(pool_overrides(drv["root"], tmp, 2, 1))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        del os.environ["EGOPACK_POOL_CTX"]
+    exact_spawn = same_records(train_records(result),
+                               {1: drv["records"][1]}, "spawn")
+    require(loaders_closed(result), "spawned worker pools left running")
+    log(f"pool: EGOPACK_POOL_CTX=spawn, loader_processes=2, one epoch in "
+        f"{spawn_s:.1f} s ({result['epochs'][0]['train_s']!r} s training); "
+        f"its losses {'equal bit for bit to' if exact_spawn else 'within rtol 1e-5 of'} "
+        "the in-process run's first epoch")
+    return {"launches": launches, "steps": steps, "ms": ms, "data_ms": data,
+            "exact": exact and exact_spawn, "idle": idle}
+
+
+def predict_keys(cfg, task: str) -> set:
+    """Every window of the split ``cfg.validation_split`` as the challenge
+    keys it: ``<clip_uid>_<last_idx>`` for LTA, the unique id else."""
+    key = {"lta": "dataset_lta", "oscc": "dataset_oscc", "pnr": "dataset_pnr"}
+    ds = instantiate(cfg[key[task]], split=cfg.validation_split)
+    if task == "lta":
+        return {f"{e.clip_uid}_{e.id}" for e in ds.lta_annotations}
+    return {a.unique_uid for a in ds.annotations}
+
+
+def phase_predict(tmp: str, drv: dict, ego: dict, cold: dict) -> dict:
+    """``egopack_torch.predict`` on ``test_unannotated``: LTA, OSCC and PNR
+    from MTL_ar-lta-pnr, OSCC from the phase-2 MTL_oscc (one cosine_knn
+    launch per batch); then OSCC from MTL_oscc on ``val``, whose decisions'
+    accuracy must be the cold evaluation's."""
+    split = "validation_split=test_unannotated"
+    args = [o for o in driver_overrides(drv["root"], tmp, 1)
+            if not o.startswith("validation_split=")] + [
+        split, f"resume_from={ARTIFACT}"]
+    cfg = compose(default_config_dir(), "defaults", args)
+    counts = {}
+    for task in ("lta", "oscc", "pnr"):
+        out = f"{tmp}/predict_{task}.json"
+        preds = predict_main(args + [f"task={task}", f"output={out}"])
+        with open(out) as f:
+            require(json.load(f) == preds, f"{task}: written predictions")
+        keys = predict_keys(cfg, task)
+        require(set(preds) == keys and keys,
+                f"{task}: {len(preds)} predictions for {len(keys)} windows")
+        counts[task] = len(preds)
+        if task == "lta":
+            for k, v in preds.items():
+                require(all(len(v[h]) == 5 and all(len(q) == 20 for q in v[h])
+                            for h in ("verb", "noun")), f"LTA {k} shape")
+        elif task == "oscc":
+            require(all(0.0 <= v["prob_change"] <= 1.0
+                        and isinstance(v["state_change"], bool)
+                        for v in preds.values()), "OSCC probabilities")
+        else:
+            ds = instantiate(cfg.dataset_pnr, split=cfg.validation_split)
+            for i in range(len(ds)):
+                sample = ds.get(i)
+                f = preds[sample["uid"]]["pnr_frame"]
+                require(sample["start_frame"] <= f <= sample["end_frame"],
+                        f"PNR {sample['uid']} frame {f} outside "
+                        f"[{sample['start_frame']}, {sample['end_frame']}]")
+    log(f"predict: from {ARTIFACT} on test_unannotated: "
+        f"{json.dumps(counts)} predictions, one a window; LTA 5 x 20 a head, "
+        "OSCC prob_change in [0, 1], PNR frames within their windows")
+
+    ego_args = [o for o in egopack_overrides(ego["root"], tmp, 1)
+                if not o.startswith(("resume_from=", "validation_split="))] + [
+        f"resume_from={EGOPACK_ARTIFACT}", "task=oscc"]
+    ego_cfg = compose(default_config_dir(), "defaults",
+                      ego_args[:-1] + [split])
+    n_windows = len(predict_keys(ego_cfg, "oscc"))
+    batches = -(-n_windows // BATCH)
+    tfa.fused_adam.launches = 0
+    tkt.cosine_knn.launches = 0
+    preds = predict_main(ego_args + [split, f"output={tmp}/predict_ego.json"])
+    torch.cuda.synchronize()
+    knn_launches = tkt.cosine_knn.launches
+    require(len(preds) == n_windows and knn_launches == batches
+            and tfa.fused_adam.launches == 0,
+            f"predict from {EGOPACK_ARTIFACT}: {len(preds)} predictions, "
+            f"cosine_knn launched {knn_launches} times for {batches} batches")
+    val = predict_main(ego_args + ["validation_split=val",
+                                   f"output={tmp}/predict_ego_val.json"])
+    val_cfg = compose(default_config_dir(), "defaults",
+                      ego_args[:-1] + ["validation_split=val"])
+    ds = instantiate(val_cfg.dataset_oscc, split="val")
+    hits = [val[a.unique_uid]["state_change"] == bool(a.state_change)
+            for a in ds.annotations]
+    acc = float(np.mean(hits))
+    require(acc == cold["accuracy"],
+            f"predict's OSCC accuracy on val {acc!r} against the cold "
+            f"evaluation's {cold['accuracy']!r}")
+    log(f"predict: from {EGOPACK_ARTIFACT}: {len(preds)} OSCC predictions on "
+        f"test_unannotated, cosine_knn launches {knn_launches} in {batches} "
+        f"batches; on val its decisions' accuracy {acc!r} equals the cold "
+        "evaluation's")
+    return {"knn_launches": knn_launches, "batches": batches}
+
+
+def phase_tools(tmp: str) -> None:
+    """``egopack_torch.aggregate`` over the smoke's phase-1 run directories
+    (each run a group of its own: its last values) and ``python -m
+    egopack_torch.sweep experiments/mtl.yaml --dry-run``."""
+    out_dir = f"{tmp}/outputs"
+    runs = aggregate.load_runs(out_dir)
+    result = aggregate.aggregate(out_dir)
+    require(len(runs) >= 2 and len(result) == len(runs),
+            f"{len(runs)} runs in {len(result)} groups")
+    finals = []
+    for name in sorted(os.listdir(out_dir)):
+        path = f"{out_dir}/{name}/metrics.jsonl"
+        if not os.path.exists(path):
+            continue
+        last = {}
+        with open(path) as f:
+            for line in f:
+                last.update({k: float(v) for k, v in json.loads(line).items()
+                             if k not in ("step", "time")
+                             and isinstance(v, (int, float))})
+        finals.append(last)
+    means = [{m: s["mean"] for m, s in g.items()} for g in result.values()]
+    require(all(s["n"] == 1 for g in result.values() for s in g.values())
+            and sorted(json.dumps(m, sort_keys=True) for m in means)
+            == sorted(json.dumps(f, sort_keys=True) for f in finals),
+            "aggregate's means differ from the runs' last values")
+    proc = subprocess.run([sys.executable, "-m", "egopack_torch.sweep",
+                           "experiments/mtl.yaml", "--dry-run"], cwd=HERE,
+                          capture_output=True, text=True, timeout=120)
+    require(proc.returncode == 0, f"sweep exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    cmds = proc.stdout.splitlines()[1:]
+    require(len(cmds) == 4 and all(" -m egopack_torch.main_temporal " in c
+                                   for c in cmds),
+            f"sweep --dry-run printed {proc.stdout}")
+    log(f"tools: aggregate over {len(runs)} run directories gives each run's "
+        f"last values ({len(finals[0])} metrics a run); sweep "
+        f"experiments/mtl.yaml --dry-run: {len(cmds)} commands of "
+        "-m egopack_torch.main_temporal")
 
 
 def build_kernels() -> None:
@@ -1205,12 +1601,16 @@ def run(dev, card: str):
     mtl, step_ms, launches, steps = phase_train(dev, card)
     phase_small_vs_cpu(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
-        loaded, drv_launches, drv_steps, drv_ms = phase_driver(tmp, card)
+        drv = phase_driver(tmp, card)
+        drv_launches, drv_steps, drv_ms = (drv["launches"], drv["steps"],
+                                           drv["ms_step"])
         ego_drv = phase_egopack_driver(tmp, card)
-        eval_launches = phase_evaluate(tmp, ego_drv)
+        eval_launches, cold = phase_evaluate(tmp, ego_drv)
+        pool = phase_pool(tmp, drv, card)
+        pred = phase_predict(tmp, drv, ego_drv, cold)
+        phase_tools(tmp)
     ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(
-        mtl, loaded, dev, card)
-    del loaded
+        mtl, drv.pop("state"), dev, card)
     phase_small_egopack_vs_cpu(dev)
     torch.cuda.empty_cache()
     bench_run = phase_bench(card)
@@ -1231,7 +1631,8 @@ def run(dev, card: str):
         "launches_by_path": {"train": launches, "driver": drv_launches,
                              "egopack_driver": ego_drv["adam_launches"],
                              "evaluate": 0, "egopack": ego_steps,
-                             "bench": bench_run["adam"]},
+                             "bench": bench_run["adam"],
+                             "pool": pool["launches"], "predict": 0},
     }, {
         "name": "cosine_knn", "route": "cuda",
         "source": "egopack_torch/ops/csrc/knn_topk.cu",
@@ -1241,7 +1642,8 @@ def run(dev, card: str):
         "launches_by_path": {"egopack_driver": ego_drv["knn_launches"],
                              "evaluate": eval_launches,
                              "egopack": knn_launches,
-                             "bench": bench_run["knn"]},
+                             "bench": bench_run["knn"], "pool": 0,
+                             "predict": pred["knn_launches"]},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
@@ -1256,7 +1658,11 @@ def run(dev, card: str):
                f"{eval_launches} in evaluate's {ego_drv['val_batches']} "
                f"batches; {knn_swaps} near-tie swaps in the kernel checks; "
                f"one bench call of {BENCH_SPC} steps per line: fused_adam "
-               f"{bench_run['adam']}, cosine_knn {bench_run['knn']})")
+               f"{bench_run['adam']}, cosine_knn {bench_run['knn']}; "
+               f"{pool['launches']} fused_adam launches in {pool['steps']} "
+               f"steps of the pooled phase-1 driver; {pred['knn_launches']} "
+               f"cosine_knn launches in {pred['batches']} batches of predict "
+               f"from {EGOPACK_ARTIFACT})")
     return kernels, summary
 
 

@@ -111,6 +111,20 @@ class FeatureStore:
                 for uid, length, size in rows:
                     f.write(f"{uid},{length},{size}\n")
 
+    def __getstate__(self) -> dict:
+        # a memmap pickles as a copy of its whole array: a spawned loader
+        # worker would get every video in memory. Pickle the paths instead.
+        state = dict(self.__dict__)
+        state["_features"] = list(self._features)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._features = {
+            uid: np.load(osp.join(self.processed_dir, f"{uid}.npy"),
+                         mmap_mode="r")
+            for uid in state["_features"]}
+
     def __getitem__(self, uid: str) -> np.ndarray:
         return self._features[uid]
 

@@ -11,6 +11,12 @@ the reference's epoch (reference ``utils/dataloading.py:8-47``): as long as
 the longest enabled loader, exhausted loaders restarting until all have
 completed once.
 
+``WorkerPoolLoader`` (``loader_processes > 0``) builds whole batches in
+worker processes, round-robin, and hands them over in the single-process
+order, so the stream is the same bit for bit. Workers run numpy only: they
+never touch CUDA, and batches stay numpy until ``DeviceCopier.put`` runs in
+the consumer.
+
 ``device_batch`` and ``device_prefetch`` move the arrays the steps read
 (``x``, ``y``, ``valid``) to the card from pinned host memory, by
 non-blocking copies on a side stream, a few batches ahead of the step.
@@ -19,13 +25,19 @@ non-blocking copies on a side stream, a few batches ahead of the step.
 from __future__ import annotations
 
 import collections
+import multiprocessing as mp
+import os
 import queue
 import threading
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+import time
+import traceback
+import weakref
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..io import native
 from .base import BaseDataset
 
 _ARRAY_KEYS_PASSTHROUGH = ("uid", "clip_uid", "last_idx")
@@ -101,8 +113,16 @@ class DataLoader:
                & 0xFFFFFFFFFFFFFFFF)
         return np.random.Generator(np.random.Philox(key=[mix, int(idx)]))
 
-    def _produce(self, pass_idx: int) -> Iterator[Dict[str, Any]]:
-        for idxs in self._index_batches(pass_idx):
+    def _produce(self, pass_idx: int,
+                 stride: Optional[tuple] = None) -> Iterator[Dict[str, Any]]:
+        """The batches of pass ``pass_idx``; ``stride=(w, W)`` yields only
+        the batches ``k`` with ``k % W == w``, a worker's share. A batch's
+        content does not depend on who builds it (the schedule is global and
+        each sample's rng is keyed by its dataset index), so W strided
+        producers interleave into the single-producer stream."""
+        for k, idxs in enumerate(self._index_batches(pass_idx)):
+            if stride is not None and k % stride[1] != stride[0]:
+                continue
             samples = [self.dataset.get(int(i), self._sample_rng(pass_idx, i))
                        for i in idxs]
             yield collate(samples, pad_to=self.batch_size)
@@ -157,19 +177,206 @@ class DataLoader:
             stop.set()
 
 
+_POOL_ERROR = "__worker_error__"
+
+
+def _pool_worker(loader: DataLoader, wid: int, nworkers: int, cmd_q, out_q,
+                 cur_gen) -> None:
+    """A worker process: build this worker's round-robin share of each pass
+    asked for, until the ``None`` sentinel. numpy only, never CUDA.
+
+    Each batch travels as ``(gen, (batch, gathers))``: ``gathers`` are the
+    feature gathers by path (``io.native.PATH_CALLS``) that this worker made
+    since its last message, which the consumer adds to its own counts. When
+    the consumer's generation ``cur_gen`` moves on (a multiloader
+    wraparound abandoned the pass), the worker stops that pass. An error
+    travels as ``(gen, (_POOL_ERROR, traceback))`` and ends the worker."""
+    seen = dict(native.PATH_CALLS)
+
+    def gathers() -> Dict[str, int]:
+        now = dict(native.PATH_CALLS)
+        delta = {k: now[k] - seen.get(k, 0) for k in now}
+        seen.update(now)
+        return delta
+
+    while True:
+        msg = cmd_q.get()
+        if msg is None:
+            return
+        gen, epoch, pass_idx = msg
+        loader._epoch = epoch
+        try:
+            for b in loader._produce(pass_idx, stride=(wid, nworkers)):
+                out_q.put((gen, (b, gathers())))
+                if cur_gen.value != gen:  # pass abandoned: next command
+                    break
+        except Exception:
+            out_q.put((gen, (_POOL_ERROR, traceback.format_exc())))
+            return
+
+
+def _close_pool(procs, cmd_qs, out_qs, cur_gen) -> None:
+    """Shut a worker pool down: mark any pass stale, send the sentinels,
+    drain the queues so a worker blocked in ``put`` can finish and exit,
+    terminate what is left after 5 s. Module-level so that
+    ``weakref.finalize`` can hold it without keeping the loader alive."""
+    cur_gen.value += 1
+    for cq in cmd_qs:
+        try:
+            cq.put(None)
+        except (ValueError, OSError):
+            pass
+    deadline = time.time() + 5.0
+    while any(p.is_alive() for p in procs) and time.time() < deadline:
+        for oq in out_qs:
+            try:
+                oq.get_nowait()
+            except (queue.Empty, ValueError, OSError):
+                pass
+        time.sleep(0.05)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(timeout=5)
+
+
+class WorkerPoolLoader:
+    """``DataLoader`` over N worker processes (the JAX package's
+    ``WorkerPoolLoader``, egopack_tpu/data/loader.py:197-400): worker ``w``
+    builds the whole batches ``k % N == w`` of each pass and the consumer
+    reads the workers' queues in turn, so the stream equals the
+    single-process one bit for bit.
+
+    A pass that the consumer abandons (multiloader wraparound) is dropped
+    by generation: the workers stop it when they see the next generation,
+    and the consumer discards what they had queued. A worker's error, a
+    worker that dies without one, and a worker silent for
+    ``EGOPACK_POOL_STALL_S`` seconds (300 by default) raise in the
+    consumer. ``EGOPACK_POOL_CTX`` picks the start method, ``fork`` by
+    default (the datasets' memmaps are inherited); ``spawn`` pickles the
+    dataset, whose feature store reopens its files by path in the child.
+    Workers start at the first iteration and stop at :meth:`close`, or
+    when the loader is collected."""
+
+    # the consumer polls a queue this often, so a dead worker is seen soon
+    GET_TIMEOUT_S = 5.0
+
+    def __init__(self, loader: DataLoader, num_workers: int):
+        if num_workers <= 0:
+            raise ValueError(f"num_workers must be positive, got {num_workers}")
+        self.loader = loader
+        self.num_workers = num_workers
+        self.stall_limit_s = float(os.environ.get("EGOPACK_POOL_STALL_S",
+                                                  "300"))
+        self._ctx = mp.get_context(os.environ.get("EGOPACK_POOL_CTX", "fork"))
+        self._gen = 0
+        self._cur_gen = self._ctx.Value("L", 0, lock=False)
+        self._cmd_qs: list = []
+        self._out_qs: list = []
+        self._procs: list = []
+        self._finalizer = None
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    @property
+    def dataset(self) -> BaseDataset:
+        return self.loader.dataset
+
+    def _start(self) -> None:
+        for w in range(self.num_workers):
+            cq = self._ctx.Queue()
+            oq = self._ctx.Queue(maxsize=max(2, self.loader.prefetch))
+            p = self._ctx.Process(
+                target=_pool_worker,
+                args=(self.loader, w, self.num_workers, cq, oq,
+                      self._cur_gen), daemon=True)
+            p.start()
+            self._cmd_qs.append(cq)
+            self._out_qs.append(oq)
+            self._procs.append(p)
+        self._finalizer = weakref.finalize(
+            self, _close_pool, self._procs, self._cmd_qs, self._out_qs,
+            self._cur_gen)
+
+    def close(self) -> None:
+        """Stop the workers; a later iteration starts new ones."""
+        if self._finalizer is not None:
+            self._finalizer()  # runs once, then detaches
+            self._finalizer = None
+        self._procs, self._cmd_qs, self._out_qs = [], [], []
+
+    def _get(self, w: int, gen: int):
+        """The next item of worker ``w``'s queue for generation ``gen``."""
+        oq, p = self._out_qs[w], self._procs[w]
+        waited = 0.0
+        while True:
+            try:
+                g, item = oq.get(timeout=self.GET_TIMEOUT_S)
+            except queue.Empty:
+                if not p.is_alive():
+                    raise RuntimeError(
+                        f"loader worker {w} died (exitcode {p.exitcode}) "
+                        "without reporting an error") from None
+                waited += self.GET_TIMEOUT_S
+                if waited >= self.stall_limit_s:
+                    raise RuntimeError(
+                        f"loader worker {w} produced nothing for "
+                        f"{waited:.0f}s (EGOPACK_POOL_STALL_S="
+                        f"{self.stall_limit_s:.0f}); if this is a "
+                        "fork-inherited-lock deadlock, retry with "
+                        "EGOPACK_POOL_CTX=spawn") from None
+                continue
+            if item[0] == _POOL_ERROR:
+                raise RuntimeError(f"loader worker {w} failed:\n{item[1]}")
+            batch, gathers = item
+            for k, n in gathers.items():
+                native.PATH_CALLS[k] = native.PATH_CALLS.get(k, 0) + n
+            if g == gen:  # items of abandoned passes are dropped
+                return batch
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if not self._procs:
+            self._start()
+        pass_idx = self.loader._pass
+        self.loader._pass += 1
+        self._gen += 1
+        gen = self._gen
+        self._cur_gen.value = gen  # stops workers still on a stale pass
+        for cq in self._cmd_qs:
+            cq.put((gen, self.loader._epoch, pass_idx))
+        for k in range(len(self.loader)):
+            yield self._get(k % self.num_workers, gen)
+
+
+Loader = Union[DataLoader, WorkerPoolLoader]
+
+
 def build_dataloader(dataset: BaseDataset, batch_size: int, shuffle: bool,
                      num_workers: int, drop_last: bool, seed: int = 0,
-                     worker_processes: int = 0) -> DataLoader:
+                     worker_processes: int = 0) -> Loader:
     """Signature-compatible with the reference builder; ``num_workers``
-    sets the prefetch depth of the batch thread. Worker processes
-    (``loader_processes > 0``, the JAX package's ``WorkerPoolLoader``) are
-    not ported yet (ROADMAP, Queue 1 item 8)."""
+    sets the prefetch depth; ``worker_processes > 0`` builds the batches in
+    that many worker processes (:class:`WorkerPoolLoader`), with the same
+    stream."""
+    loader = DataLoader(dataset, batch_size, shuffle, drop_last, seed,
+                        prefetch=max(2, num_workers))
     if worker_processes > 0:
-        raise NotImplementedError(
-            "loader_processes > 0 (WorkerPoolLoader) is not ported yet; see "
-            "ROADMAP.md, Queue 1 item 8. Use loader_processes=0.")
-    return DataLoader(dataset, batch_size, shuffle, drop_last, seed,
-                      prefetch=max(2, num_workers))
+        return WorkerPoolLoader(loader, worker_processes)
+    return loader
+
+
+def close_loaders(dsets: Dict[str, Dict[str, Any]]) -> None:
+    """Stop the worker pools of the drivers' loaders (``dl_train``,
+    ``dl_val`` of each task); the in-process loaders have none."""
+    for d in dsets.values():
+        for key in ("dl_train", "dl_val"):
+            dl = d.get(key)
+            if hasattr(dl, "close"):
+                dl.close()
 
 
 class MultiLoader:

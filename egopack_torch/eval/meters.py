@@ -5,8 +5,8 @@ Mirrors reference utils/meters/: the meter factory dispatches on the
 dataset type (``__init__.py:10-22``), each meter accumulates on the host and
 computes at epoch end. Logits arrive as numpy (the validate loop fetched
 them); the caller drops padded batch entries with the valid mask. The
-t-SNE embedding of the features (``log_feature_plots``) is not ported yet
-(ROADMAP.md, Queue 1 item 13).
+t-SNE embedding of the features (``log_feature_plots``) needs
+scikit-learn, imported at the call.
 """
 
 from __future__ import annotations
@@ -48,12 +48,17 @@ class BaseMeter:
                 -1, np.asarray(post).shape[-1]))
 
     def feature_embedding(self, which: str = "post", max_points: int = 2000):
-        """2-D t-SNE coordinates of the accumulated features (the
-        reference's wandb scatter plot, base.py:36-39). Not ported yet: it
-        needs scikit-learn, which the card's machine does not have."""
-        raise NotImplementedError(
-            "t-SNE feature plots (log_feature_plots) are not ported yet; see "
-            "ROADMAP.md, Queue 1 item 13")
+        """2-D t-SNE coordinates of the first ``max_points`` accumulated
+        features (the reference's wandb scatter plot, base.py:36-39), as
+        (n, 2) numpy, or None without features. Needs scikit-learn; where
+        it is missing the ImportError reaches the caller."""
+        feats = self._post_features if which == "post" else self._pre_features
+        if not feats:
+            return None
+        from sklearn.manifold import TSNE
+        data = np.concatenate(feats)[:max_points]
+        perplexity = min(30.0, max(1.0, (len(data) - 1) / 3))
+        return TSNE(2, perplexity=perplexity).fit_transform(data)
 
     def update_loss(self, loss: float, n: int = 1):
         """Equal-weight batch mean: the reference feeds the per-batch scalar

@@ -6,8 +6,8 @@ Mirrors reference ``validate.py``: ``validate`` (AR, OSCC), ``validate_lta``
 localization). The eval step comes from ``MultiTaskSystem.make_eval_step``;
 each batch's outputs reach the host in one wait for the device, and the
 per-batch loss is the JAX package's numpy masked mean over the fetched
-per-element losses. The features for t-SNE plots are not collected (not
-ported yet, ROADMAP.md Queue 1 item 13).
+per-element losses. A meter with ``save_features`` also collects each
+valid sample's input and projected features for its t-SNE plot.
 """
 
 from __future__ import annotations
@@ -48,7 +48,29 @@ def _batch_loss(per_elem: np.ndarray, batch) -> float:
     return float((pe * m).sum() / max(m.sum(), 1.0))
 
 
-def _batches(loader, device):
+def _pre_features(batch, valid: np.ndarray) -> np.ndarray:
+    """The reference's pre-features (validate.py:54-57): the mean over the
+    segments of the raw input when ``x`` has a segment axis, else ``x``
+    (egopack_tpu/eval/validate.py:_pre_features)."""
+    x = np.asarray(batch["x"])[valid]
+    return x.mean(-2) if x.ndim == 4 else x
+
+
+def _fetch(meter: BaseMeter, batch, valid: np.ndarray,
+           outputs: List[torch.Tensor], feat: torch.Tensor
+           ) -> List[np.ndarray]:
+    """``outputs`` on the host in one wait. With ``meter.save_features``
+    the projected features ride along and go to the meter with the input's
+    (for LTA and PNR too, which the reference's loops leave out,
+    validate.py:107,150; the JAX package extends the base convention)."""
+    if not meter.save_features:
+        return to_host(outputs)
+    host = to_host(outputs + [feat])
+    meter.update_features(_pre_features(batch, valid), host.pop()[valid])
+    return host
+
+
+def paired_batches(loader, device):
     """(host batch, device batch) pairs, the copies one batch ahead."""
     copier = DeviceCopier(device)
     return device_prefetch(iter(loader), lambda b: (b, copier.put(b)),
@@ -60,12 +82,12 @@ def validate(eval_step: Callable, banks, loader, meter: BaseMeter,
     """Task-generic eval (AR, OSCC), reference validate.py:14-60."""
     if task_name not in ("ar", "oscc"):
         raise ValueError(task_name)
-    for batch, dbatch in _batches(loader, device):
-        logits, per_elem, _, _ = eval_step(dbatch, banks)
+    for batch, dbatch in paired_batches(loader, device):
+        logits, per_elem, feat, _ = eval_step(dbatch, banks)
         valid = np.asarray(batch["valid"])
         y = np.asarray(batch["y"])
         heads = list(logits) if task_name == "ar" else [logits]
-        host = to_host(heads + [per_elem])
+        host = _fetch(meter, batch, valid, heads + [per_elem], feat)
         loss = _batch_loss(host[-1], batch)
         if task_name == "ar":
             v, n = (h[valid].reshape(-1, h.shape[-1]) for h in host[:2])
@@ -82,12 +104,14 @@ def validate_lta(eval_step: Callable, banks, loader, meter: BaseMeter,
     """LTA eval with K=5 categorical samples per node
     (reference validate.py:63-106); ``sample_fn(logits, generator)`` is the
     head's ``generate_from_logits``."""
-    for batch, dbatch in _batches(loader, device):
-        logits, per_elem, _, _ = eval_step(dbatch, banks)
+    for batch, dbatch in paired_batches(loader, device):
+        logits, per_elem, feat, _ = eval_step(dbatch, banks)
         preds, logits = sample_fn(logits, generator)
         valid = np.asarray(batch["valid"])
         y = np.asarray(batch["y"])
-        host = to_host([logits[0], logits[1], preds[0], preds[1], per_elem])
+        host = _fetch(meter, batch, valid,
+                      [logits[0], logits[1], preds[0], preds[1], per_elem],
+                      feat)
         loss = _batch_loss(host[4], batch)
         flat = [a[valid].reshape((-1,) + a.shape[2:]) for a in host[:4]]
         meter.update((flat[0], flat[1]), y[valid].reshape(-1, 2),
@@ -99,10 +123,10 @@ def validate_pnr(eval_step: Callable, banks, loader, meter: BaseMeter,
                  device: torch.device) -> BaseMeter:
     """PNR eval with the localization metadata
     (reference validate.py:109-150)."""
-    for batch, dbatch in _batches(loader, device):
-        logits, per_elem, _, _ = eval_step(dbatch, banks)
+    for batch, dbatch in paired_batches(loader, device):
+        logits, per_elem, feat, _ = eval_step(dbatch, banks)
         valid = np.asarray(batch["valid"])
-        host = to_host([logits, per_elem])
+        host = _fetch(meter, batch, valid, [logits, per_elem], feat)
         loss = _batch_loss(host[1], batch)
         meter.update(host[0][valid], np.asarray(batch["y"])[valid], loss,
                      start_frame=np.asarray(batch["start_frame"])[valid],

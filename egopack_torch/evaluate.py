@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .config import compose, default_config_dir, to_container
+from .data.loader import close_loaders
 from .device import make_generator
 from .train import driver as drv
 from .train.checkpoint import load_artifact, unpack_artifact
@@ -67,6 +68,7 @@ def evaluate(cfg, output: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
         cfg, system, dsets, task_weights, 0, run_logger, eval_steps,
         make_generator(drv.draw_seed(run_gen), device), banks,
         force_all=bool(cfg.get("validate_all_tasks", False)))
+    close_loaders(dsets)
     run_logger.close()
     if output:
         with open(output, "w") as f:

@@ -62,11 +62,10 @@ def device_events(prof) -> List:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def busy_us(events: Sequence) -> float:
-    """Microseconds covered by the union of the events' time ranges."""
+def union_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
     total, start, end = 0.0, None, None
-    for s, e in sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in events):
+    for s, e in sorted(spans):
         if end is None or s > end:
             if end is not None:
                 total += end - start
@@ -74,6 +73,12 @@ def busy_us(events: Sequence) -> float:
         else:
             end = max(end, e)
     return total if end is None else total + end - start
+
+
+def busy_us(events: Sequence) -> float:
+    """Microseconds covered by the union of the events' time ranges."""
+    return union_us((ev.time_range.start, ev.time_range.end)
+                    for ev in events)
 
 
 def mean_us(windows: Sequence[Sequence], names: Sequence[str]

@@ -13,7 +13,9 @@
    ``meta_v<n>.json``.
 2. **Mid-run resume**: the full train state (parameters, Adam moments and
    count, the run's generator state, the epoch) by ``torch.save`` into
-   ``<dir>/step_<epoch>``, where the JAX package uses orbax.
+   ``<dir>/step_<epoch>``, where the JAX package uses orbax. With
+   ``async_write`` the state is copied to the host at once and written by a
+   background thread; ``wait_for_saves`` waits for those writes.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import logging
 import os
 import os.path as osp
 import re
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -143,15 +146,75 @@ def state_path(ckpt_dir: str, step: int) -> str:
     return osp.join(ckpt_dir, f"step_{step:06d}")
 
 
-def save_state(ckpt_dir: str, step: int, state: Dict[str, Any]) -> None:
-    """Write one full-state checkpoint. The file appears under its name
-    only once complete (written beside it, then renamed), so a crash
-    mid-save never leaves a checkpoint that ``latest_state`` would pick."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = state_path(ckpt_dir, step)
-    tmp = f"{path}.{os.getpid()}.tmp"
+_pending: list = []  # background writes not yet waited for
+_pending_lock = threading.Lock()
+
+
+def _host_copy(tree):
+    """A finished host copy of every tensor of ``tree``: the parameters and
+    moments are updated in place by the next step (fused Adam), so a view
+    or a pending copy would not do."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _write_state(path: str, state: Dict[str, Any]) -> None:
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def _write_in_background(path: str, state: Dict[str, Any]) -> None:
+    errors: list = []
+
+    def run():
+        try:
+            _write_state(path, state)
+        except Exception as e:  # re-raised by wait_for_saves
+            errors.append(e)
+
+    t = threading.Thread(target=run, name=f"save {osp.basename(path)}")
+    with _pending_lock:
+        _pending.append((t, errors))
+    t.start()
+
+
+def save_state(ckpt_dir: str, step: int, state: Dict[str, Any],
+               async_write: bool = False) -> None:
+    """Write one full-state checkpoint. The file appears under its name
+    only once complete (written beside it, then renamed), so a crash
+    mid-save never leaves a checkpoint that ``latest_state`` would pick.
+
+    ``async_write=True`` copies the state to the host before it returns and
+    leaves the file write to a background thread (the JAX package's orbax
+    ``AsyncCheckpointer``, egopack_tpu/train/checkpoint.py:170-203); call
+    :func:`wait_for_saves` before reading the directory. Writes still
+    pending when the interpreter exits are waited for then (the threads are
+    not daemons)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = state_path(ckpt_dir, step)
+    if async_write:
+        _write_in_background(path, _host_copy(state))
+    else:
+        _write_state(path, state)
+
+
+def wait_for_saves() -> None:
+    """Block until every background write of :func:`save_state` has
+    finished; re-raise the first error one of them met."""
+    with _pending_lock:
+        pending = list(_pending)
+        _pending.clear()
+    first = None
+    for t, errors in pending:
+        t.join()
+        if errors and first is None:
+            first = errors[0]
+    if first is not None:
+        raise first
 
 
 def latest_state(ckpt_dir: str) -> Optional[int]:

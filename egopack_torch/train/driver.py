@@ -34,17 +34,19 @@ import torch
 from .. import interop
 from ..config import instantiate, to_container
 from ..data.loader import (DeviceCopier, MultiLoader, build_dataloader,
-                           device_prefetch)
+                           close_loaders, device_prefetch)
 from ..device import make_generator, resolve_device
 from ..eval.meters import build_meter_for_dataset
 from ..eval.validate import to_host, validate, validate_lta, validate_pnr
 from ..io import native
 from ..models.graphone import GraphONE, build_prototypes, make_prototype_step
 from ..models.heads import LTATask, OSCCTask, PNRTask, RecognitionTask
+from ..utils import plots
 from ..utils.logging import RunLogger, format_run_name, setup_logging
 from . import optim as topt
 from .checkpoint import (latest_state, load_artifact, merge_loaded_params,
-                         restore_state, save_artifact, save_state)
+                         restore_state, save_artifact, save_state,
+                         wait_for_saves)
 from .system import CKPT_KEYS, Banks, MultiTaskSystem, TaskSetup
 
 logger = logging.getLogger(__name__)
@@ -86,10 +88,6 @@ def check_supported(cfg) -> None:
             f"parallel={to_container(par)}: the port runs on one card "
             "(parallel.data 1 or -1, parallel.model 1, no multihost); "
             "multi-GPU is ROADMAP.md Queue 1 item 14")
-    if bool(cfg.get("log_feature_plots", False)):
-        raise NotImplementedError(
-            "log_feature_plots (t-SNE) is not ported yet; see ROADMAP.md, "
-            "Queue 1 item 13")
     if cfg.get("compilation_cache_dir", None):
         logger.info("compilation_cache_dir=%s is ignored: the port compiles "
                     "no XLA programs", cfg.compilation_cache_dir)
@@ -108,7 +106,9 @@ def task_weights_from_cfg(cfg) -> Dict[str, float]:
 
 def build_datasets(cfg) -> Dict[str, Dict[str, Any]]:
     """The four task datasets and their loaders (both mains build all four
-    whatever ``enabled_tasks`` says, reference main_temporal.py:161-235)."""
+    whatever ``enabled_tasks`` says, reference main_temporal.py:161-235);
+    ``loader_processes > 0`` builds the batches in worker processes, which
+    :func:`~egopack_torch.data.loader.close_loaders` stops."""
     out = {}
     dataset_cfgs = {"ar": cfg.dataset_recognition, "oscc": cfg.dataset_oscc,
                     "lta": cfg.dataset_lta, "pnr": cfg.dataset_pnr}
@@ -235,6 +235,7 @@ def _run_validation(cfg, system: MultiTaskSystem, dsets, task_weights,
             continue
         meter = build_meter_for_dataset(
             dsets[name]["val"],
+            save_features=bool(cfg.get("log_feature_plots", False)),
             log_confusion=bool(cfg.get("log_confusion_matrices", False)))
         step, loader = eval_steps[name], dsets[name]["dl_val"]
         if name == "lta":
@@ -251,25 +252,39 @@ def _run_validation(cfg, system: MultiTaskSystem, dsets, task_weights,
         logs = meter.get_logs()
         run_logger.log({f"val/{name}/{k}": v for k, v in logs.items()
                         if isinstance(v, (int, float))}, step=epoch)
-        if getattr(meter, "log_confusion", False):
-            _write_confusion_tables(run_logger, meter, name, epoch)
+        _emit_plots(run_logger, meter, name, epoch)
         metrics[name] = logs
     return metrics
 
 
-def _write_confusion_tables(run_logger: RunLogger, meter, name: str,
-                            epoch: int) -> None:
-    """The reference's top-2 confusion and per-class accuracy tables
-    (utils/meters/ego4d.py:134-203) as JSON in the run directory. Their
-    rendered heatmaps (``utils/plots.py``) are not ported yet (ROADMAP.md,
-    Queue 1 item 13)."""
-    tables = {which: meter.confusion_tables(which)
-              for which in ("verbs", "nouns")}
-    path = osp.join(run_logger.dir, f"confusion_{name}_ep{epoch}.json")
-    with open(path, "w") as f:
-        json.dump(tables, f)
-    logger.info("Wrote confusion tables to %s (heatmaps are not rendered by "
-                "the port yet)", path)
+def _emit_plots(run_logger: RunLogger, meter, name: str, epoch: int) -> None:
+    """What the reference sends to wandb, as files in the run directory
+    (egopack_tpu/train/driver.py:253-282): the top-2 confusion and
+    per-class accuracy tables (reference utils/meters/ego4d.py:134-203) as
+    JSON with their heatmaps (``utils/plots.py``; skipped with a warning
+    without matplotlib), and the t-SNE embeddings of the features
+    (reference utils/meters/base.py:36-39) as ``features_<task>_ep<n>.npz``."""
+    if getattr(meter, "log_confusion", False):
+        tables = {which: meter.confusion_tables(which)
+                  for which in ("verbs", "nouns")}
+        path = osp.join(run_logger.dir, f"confusion_{name}_ep{epoch}.json")
+        with open(path, "w") as f:
+            json.dump(tables, f)
+        logger.info("Wrote confusion tables to %s", path)
+        for which in ("verbs", "nouns"):
+            png = plots.heatmap_path(run_logger.dir, name, which, epoch)
+            if plots.save_confusion_heatmap(meter.confusion(which), png):
+                logger.info("Wrote confusion heatmap to %s", png)
+    if meter.save_features:
+        arrays = {}
+        for which in ("pre", "post"):
+            emb = meter.feature_embedding(which)
+            if emb is not None:
+                arrays[which] = emb
+        if arrays:
+            path = osp.join(run_logger.dir, f"features_{name}_ep{epoch}.npz")
+            np.savez(path, **arrays)
+            logger.info("Wrote t-SNE feature embeddings to %s", path)
 
 
 def _epoch_means(logs: List[Dict[str, torch.Tensor]],
@@ -336,6 +351,7 @@ def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
     one exists; returns the first epoch to run."""
     if not cfg.checkpoint.enable:
         return 1
+    wait_for_saves()  # a background write of this process may be pending
     last = latest_state(ckpt_dir)
     if last is None:
         return 1
@@ -354,12 +370,13 @@ def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
 
 
 def _save_checkpoint(ckpt_dir: str, epoch: int, system: MultiTaskSystem,
-                     opt_state: topt.AdamState,
-                     run_gen: torch.Generator) -> None:
+                     opt_state: topt.AdamState, run_gen: torch.Generator,
+                     async_write: bool) -> None:
     save_state(ckpt_dir, epoch, {
         "params": {n: p.detach() for n, p in system.params().items()},
         "mu": opt_state.mu, "nu": opt_state.nu, "count": opt_state.count,
-        "generator": run_gen.get_state(), "epoch": epoch})
+        "generator": run_gen.get_state(), "epoch": epoch},
+        async_write=async_write)
 
 
 def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
@@ -455,7 +472,8 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                 *extra, first_batches, make_generator(step_seed, device)),
                 epoch)
         if cfg.checkpoint.enable and epoch % cfg.checkpoint.every == 0:
-            _save_checkpoint(ckpt_dir, epoch, system, opt_state, run_gen)
+            _save_checkpoint(ckpt_dir, epoch, system, opt_state, run_gen,
+                             bool(cfg.checkpoint.get("async_write", False)))
         if should_validate(epoch):
             val_metrics = _run_validation(cfg, system, dsets, task_weights,
                                           epoch, run_logger, eval_steps,
@@ -469,9 +487,6 @@ def train_mtl(cfg) -> Dict[str, Any]:
     setup_logging()
     check_supported(cfg)
     device = config_device(cfg.get("device", "cuda"))
-    if cfg.checkpoint.get("async_write", False):
-        logger.info("checkpoint.async_write: the port writes checkpoints "
-                    "synchronously")
     run_logger = make_run_logger(cfg)
     run_gen = torch.Generator()
     run_gen.manual_seed(cfg.seed if cfg.seed > 0 else 0)
@@ -521,6 +536,8 @@ def train_mtl(cfg) -> Dict[str, Any]:
         # validate in the last 5 epochs only (main_temporal.py:342-343)
         should_validate=lambda epoch: epoch >= cfg.num_epochs - 5,
         hist_fn=hist_fn)
+    wait_for_saves()
+    close_loaders(dsets)
     logger.info("Feature gathers so far: %s", native.PATH_CALLS)
 
     result = {"system": system, "optimizer": optimizer,
@@ -568,9 +585,6 @@ def train_egopack(cfg) -> Dict[str, Any]:
     if not cfg.resume_from:
         raise ValueError("EgoPack phase requires resume_from=<MTL artifact>")
     device = config_device(cfg.get("device", "cuda"))
-    if cfg.checkpoint.get("async_write", False):
-        logger.info("checkpoint.async_write: the port writes checkpoints "
-                    "synchronously")
     run_logger = make_run_logger(cfg)
     run_gen = torch.Generator()
     run_gen.manual_seed(cfg.seed if cfg.seed > 0 else 0)
@@ -652,6 +666,8 @@ def train_egopack(cfg) -> Dict[str, Any]:
         # phase 2 validates every epoch (main_egopack.py:407-447)
         should_validate=lambda epoch: True, banks=banks,
         force_all=bool(cfg.validate_all_tasks), hist_fn=hist_fn)
+    wait_for_saves()
+    close_loaders(dsets)
     logger.info("Feature gathers so far: %s", native.PATH_CALLS)
 
     result = {"system": system, "optimizer": optimizer,

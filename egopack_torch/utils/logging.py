@@ -4,7 +4,8 @@
 ``format_run_name`` reproduces the reference's ``format_wandb_run_name``
 pattern substitution on the flattened config (reference
 ``utils/wandb.py:5-24``); ``RunLogger`` writes one directory per run with
-``config.json`` and the ``metrics.jsonl`` records."""
+``config.json`` and the ``metrics.jsonl`` records, and with
+``EGOPACK_WANDB=1`` passes them on to wandb where it is installed."""
 
 from __future__ import annotations
 
@@ -47,7 +48,10 @@ def format_run_name(pattern: Optional[str], cfg: Dict[str, Any]) -> Optional[str
 class RunLogger:
     """Console + metrics.jsonl; mirrors wandb.log's (dict, step) interface.
     Every run gets its own directory (``<name>-2``, ... when the name is
-    taken), as every wandb run gets its own id."""
+    taken), as every wandb run gets its own id. ``EGOPACK_WANDB=1`` also
+    sends every record to a wandb run (project ``WANDB_PROJECT``, else
+    ``egopack_tpu``); without wandb that logs a warning and the run goes
+    on (egopack_tpu/utils/logging.py:70-93)."""
 
     def __init__(self, output_dir: str, run_name: Optional[str] = None,
                  config: Optional[Dict[str, Any]] = None):
@@ -63,15 +67,28 @@ class RunLogger:
         if config is not None:
             with open(osp.join(self.dir, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
+        self._wandb = None
+        if os.environ.get("EGOPACK_WANDB") == "1":
+            try:
+                import wandb
+                self._wandb = wandb.init(
+                    project=os.environ.get("WANDB_PROJECT", "egopack_tpu"),
+                    name=self.run_name, config=config, dir=self.dir)
+            except Exception as e:  # the files are the record; go on
+                logger.warning("wandb passthrough unavailable: %s", e)
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
         record = {"step": step, "time": time.time()}
         record.update({k: _scalar(v) for k, v in metrics.items()})
         self._f.write(json.dumps(record, default=str) + "\n")
         self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
 
     def close(self) -> None:
         self._f.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
 class NullLogger:

@@ -133,3 +133,41 @@ def test_state_round_trip(tmp_path):
     g2 = torch.Generator()
     g2.set_state(back["generator"])
     assert torch.equal(torch.rand(4, generator=g2), torch.rand(4, generator=gen))
+
+
+def test_async_state_is_a_snapshot(tmp_path, monkeypatch):
+    """``async_write=True`` returns before the file is written, but what it
+    writes is the state as it was at the call: the fused optimizer updates
+    the tensors in place right after. ``wait_for_saves`` waits for the
+    write and re-raises a writer's error."""
+    import threading
+    d = str(tmp_path / "ckpt")
+    params = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    gate = threading.Event()
+    orig = tckpt._write_state
+
+    def slow_write(path, state):
+        gate.wait(10)
+        orig(path, state)
+
+    monkeypatch.setattr(tckpt, "_write_state", slow_write)
+    tckpt.save_state(d, 1, {"params": params, "count": 3, "epoch": 1},
+                     async_write=True)
+    params["w"].add_(100.0)  # the next step, in place
+    assert tckpt.latest_state(d) is None  # not written yet
+    gate.set()
+    tckpt.wait_for_saves()
+    back = tckpt.restore_state(d, 1, torch.device("cpu"))
+    assert torch.equal(back["params"]["w"],
+                       torch.arange(6, dtype=torch.float32).reshape(2, 3))
+    assert back["count"] == 3 and tckpt.latest_state(d) == 1
+
+    def failing_write(path, state):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(tckpt, "_write_state", failing_write)
+    tckpt.save_state(d, 2, {"params": params}, async_write=True)
+    with pytest.raises(OSError, match="disk full"):
+        tckpt.wait_for_saves()
+    tckpt.wait_for_saves()  # nothing left pending
+    assert tckpt.latest_state(d) == 1

@@ -151,10 +151,21 @@ def test_multiloader_streams_match_jax(roots):
             assert_batches_equal(ta, ja, f"epoch {epoch} step {step}")
 
 
-def test_build_dataloader_refuses_worker_processes(roots):
+def test_build_dataloader_worker_processes_give_a_pool(roots):
+    """``worker_processes > 0`` wraps the loader in a pool of that many
+    workers (started at the first iteration; its stream is held against
+    JAX's in tests/test_torch_port_pool.py)."""
     ds = DATASETS["ar"][0]("val", root=roots[0], num_segments=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.build_dataloader(ds, 4, False, 0, False, worker_processes=2)
+    plain = tloader.build_dataloader(ds, 4, False, 3, False, seed=2)
+    pool = tloader.build_dataloader(ds, 4, False, 3, False, seed=2,
+                                    worker_processes=2)
+    assert isinstance(plain, tloader.DataLoader)
+    assert isinstance(pool, tloader.WorkerPoolLoader)
+    assert pool.num_workers == 2 and pool.dataset is ds
+    assert len(pool) == len(plain) and pool.loader.prefetch == plain.prefetch
+    assert pool._procs == []
+    with pytest.raises(ValueError, match="positive"):
+        tloader.WorkerPoolLoader(plain, 0)
 
 
 def test_native_gather_matches_numpy(monkeypatch):

@@ -209,11 +209,7 @@ def test_unsupported_settings_raise(runs, monkeypatch):
     base = overrides(runs["root"], runs["tmp"]["port"], "device=cpu",
                      "num_epochs=1", "save_model=False")
     for extra, match in ((["parallel.data=2"], "Queue 1 item 14"),
-                         (["parallel.multihost=True"], "Queue 1 item 14"),
-                         (["log_feature_plots=True"], "Queue 1 item 13"),
-                         (["loader_processes=2"], "Queue 1 item 8"),
-                         (["model.temporal_pooling.encoding=positional"],
-                          "Queue 1 item 4")):
+                         (["parallel.multihost=True"], "Queue 1 item 14")):
         with pytest.raises(NotImplementedError, match=match):
             tmain.main(base + extra)
     # the configs' device=tpu means the card; without one it raises
@@ -267,7 +263,8 @@ def test_cli_runs_the_verify_phase1_command(ego4d_root, tmp_path):
 
 OPTIONS = {"norms_and_histograms": ("log_per_layer_norms=True",
                                     "log_histograms_every=1"),
-           "bf16": ("+model.propagate_dtype=bfloat16",)}
+           "bf16": ("+model.propagate_dtype=bfloat16",),
+           "encoding": ("model.temporal_pooling.encoding=learnt",)}
 
 
 @pytest.fixture(scope="module")
@@ -308,3 +305,66 @@ def test_propagate_dtype_bf16_matches_jax(option_runs):
     jres, tres = option_runs["bf16"]
     assert tres["system"].backbone.propagate_dtype == torch.bfloat16
     assert_train_records_match(tres, jres, rtol=BF16_UNIT)
+
+
+def test_pooling_encoding_matches_jax(option_runs):
+    """``model.temporal_pooling.encoding=learnt`` in both CLIs from JAX's
+    initial parameters (its ``frame_encoding`` and ``encoding_mlp``
+    included): losses and norms at rtol 1e-4."""
+    jres, tres = option_runs["encoding"]
+    pooling = tres["system"].backbone.pooling
+    assert pooling.encoding == "learnt"
+    assert "temporal_graph.pooling.frame_encoding" in tres["system"].params()
+    assert_train_records_match(tres, jres, rtol=1e-4)
+
+
+def dropout_run(runs, tmp, *extra):
+    """The resume check's settings (dropout on) on directories of ``tmp``."""
+    return overrides(runs["root"], tmp, "device=cpu",
+                     "model.temporal_pooling.dropout=0.5",
+                     f"checkpoint.dir={tmp}/ckpt", *extra)
+
+
+def assert_runs_equal(a, b):
+    pa, pb = a["system"].params(), b["system"].params()
+    for name in pa:
+        assert torch.equal(pa[name], pb[name]), name
+    for name in a["opt_state"].mu:
+        assert torch.equal(a["opt_state"].mu[name], b["opt_state"].mu[name])
+        assert torch.equal(a["opt_state"].nu[name], b["opt_state"].nu[name])
+    ra, rb = (by_epoch(records(r["run_dir"]), "train/") for r in (a, b))
+    assert ra[max(ra)] == rb[max(rb)]
+
+
+@pytest.fixture(scope="module")
+def in_process_run(runs, tmp_path_factory):
+    """The straight run's settings from the port's own initial parameters,
+    loaders in this process."""
+    return tmain.main(dropout_run(runs, str(tmp_path_factory.mktemp("ip"))))
+
+
+def test_pooled_run_equals_in_process_run(runs, in_process_run, tmp_path):
+    """``loader_processes=2``: two forked workers a loader give the
+    in-process run's trajectory bit for bit, its validation too; the pools
+    are stopped when the run ends."""
+    pooled = tmain.main(dropout_run(runs, str(tmp_path), "loader_processes=2"))
+    assert_runs_equal(pooled, in_process_run)
+    for prefix in ("train/", "val/"):
+        assert by_epoch(records(pooled["run_dir"]), prefix) == by_epoch(
+            records(in_process_run["run_dir"]), prefix)
+    loaders = [d[k] for d in pooled["dsets"].values()
+               for k in ("dl_train", "dl_val")]
+    assert all(dl.num_workers == 2 and dl._procs == [] for dl in loaders)
+
+
+def test_resume_from_async_checkpoint_equals_straight_run(
+        runs, in_process_run, tmp_path):
+    """``checkpoint.async_write=True``: the epoch-1 checkpoint, written in
+    the background, resumes to the straight run bit for bit."""
+    extra = ("checkpoint.enable=True", "checkpoint.async_write=True")
+    first = tmain.main(dropout_run(runs, str(tmp_path), "num_epochs=1",
+                                   *extra))
+    assert tckpt.latest_state(f"{tmp_path}/ckpt/mtl_{ARTIFACT}") == 1
+    resumed = tmain.main(dropout_run(runs, str(tmp_path), *extra))
+    assert first["start_epoch"] == 1 and resumed["start_epoch"] == 2
+    assert_runs_equal(resumed, in_process_run)

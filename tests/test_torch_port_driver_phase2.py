@@ -276,14 +276,61 @@ def test_errors(runs):
 @pytest.mark.parametrize("extra,match", [
     ("parallel.data=2", "Queue 1 item 14"),
     ("parallel.multihost=True", "Queue 1 item 14"),
-    ("log_feature_plots=True", "Queue 1 item 13"),
-    ("loader_processes=2", "Queue 1 item 8"),
-    ("model.temporal_pooling.encoding=positional", "Queue 1 item 4"),
 ])
 def test_unsupported_settings_raise(runs, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(phase2(runs["root"], runs["tmp"]["port"], "device=cpu",
                           "num_epochs=1", "save_model=False", extra))
+
+
+@pytest.mark.parametrize("extra", ["loader_processes=2",
+                                   "log_feature_plots=True"])
+def test_loader_and_plot_settings_train_as_the_plain_run(runs, tmp_path,
+                                                         extra):
+    """Worker processes and t-SNE plots leave the trajectory as it was:
+    one epoch equals the resume check's first epoch (dropout on, loaders in
+    this process, no plots) bit for bit, its validation too. The plots
+    are ``features_<task>_ep1.npz`` with two coordinates a sample."""
+    shutil.copytree(f"{runs['tmp']['port']}/artifacts/{MTL}",
+                    f"{tmp_path}/artifacts/{MTL}")
+    ours = tmain.main(phase2(runs["root"], str(tmp_path), "device=cpu",
+                             "task_head_dropout=0.5",
+                             "temporal_graph_train_mode=True",
+                             "model.temporal_pooling.dropout=0.5",
+                             "num_epochs=1", "save_model=False", extra))
+    ref = runs["first"]
+    pa, pb = ours["system"].params(), ref["system"].params()
+    for name in pb:
+        assert torch.equal(pa[name], pb[name]), name
+    for prefix in ("train/", "val/"):
+        assert by_epoch(records(ours["run_dir"]), prefix) == by_epoch(
+            records(ref["run_dir"]), prefix)
+    if extra.startswith("log_feature_plots"):
+        for task in ("ar", "oscc", "lta", "pnr"):
+            with np.load(osp.join(ours["run_dir"],
+                                  f"features_{task}_ep1.npz")) as npz:
+                assert sorted(npz.files) == ["post", "pre"]
+                for which in npz.files:
+                    assert npz[which].ndim == 2 and len(npz[which]) > 0
+                    assert npz[which].shape[1] == 2
+
+
+def test_pooling_encoding_runs_in_phase2(runs, tmp_path):
+    """``model.temporal_pooling.encoding=positional`` in phase 2: the
+    phase-1 artifact has no ``encoding_mlp``, which keeps its fresh values
+    (strict=False merge) and lands in the phase-2 artifact."""
+    shutil.copytree(f"{runs['tmp']['port']}/artifacts/{MTL}",
+                    f"{tmp_path}/artifacts/{MTL}")
+    ours = tmain.main(phase2(runs["root"], str(tmp_path), "device=cpu",
+                             "num_epochs=1",
+                             "model.temporal_pooling.encoding=positional"))
+    for rec in records(ours["run_dir"]):
+        for k, v in rec.items():
+            if k.startswith("train/"):
+                assert np.isfinite(v), k
+    payload, _ = jckpt.load_artifact(f"{tmp_path}/artifacts", NOVEL)
+    mlp = payload["temporal_graph"]["pooling"]["encoding_mlp"]
+    assert mlp["kernel"].shape == (16, 16) and mlp["bias"].shape == (16,)
 
 
 @pytest.mark.parametrize("extra", ["log_per_layer_norms=True",

@@ -20,6 +20,7 @@ from egopack_torch.train import driver as tdriver
 from egopack_tpu.config import compose as jcompose
 from egopack_tpu.eval import meters as jmeters
 from egopack_tpu.eval import validate as jval
+from egopack_tpu.io import native as jnative
 from egopack_tpu.train import driver as jdriver
 from torch_port_common import to_np
 
@@ -148,11 +149,43 @@ def test_meters_fed_the_same_arrays_match(systems, task):
                                           jm.confusion(which))
 
 
-def test_feature_plots_raise_naming_roadmap(systems):
-    tm = tmeters.build_meter_for_dataset(systems[4]["ar"]["val"],
-                                         save_features=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.feature_embedding()
+@pytest.mark.parametrize("task", ["ar", "oscc", "pnr", "lta"])
+def test_feature_plots_match_jax(systems, task, monkeypatch):
+    """``log_feature_plots``: the validation loops collect the same input
+    features (exactly; JAX gathers with its numpy path, which the port's
+    native gather equals bit for bit) and projected features (rtol 1e-4)
+    as JAX's; the t-SNE embedding has a row of two coordinates for each
+    sample."""
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    jsys, params, jd, tsys, td = systems
+    jm = jmeters.build_meter_for_dataset(jd[task]["val"], save_features=True)
+    tm = tmeters.build_meter_for_dataset(td[task]["val"], save_features=True)
+    jstep, tstep = jsys.make_eval_step(task), tsys.make_eval_step(task)
+    cpu = torch.device("cpu")
+    if task == "pnr":
+        jval.validate_pnr(jstep, params, None, jd[task]["dl_val"], jm)
+        tval.validate_pnr(tstep, None, td[task]["dl_val"], tm, cpu)
+    elif task == "lta":
+        head = jsys.tasks["lta"].head
+        jval.validate_lta(jstep, params, None, jd[task]["dl_val"], jm,
+                          jax.jit(head.generate_from_logits),
+                          jax.random.PRNGKey(3))
+        tval.validate_lta(tstep, None, td[task]["dl_val"], tm,
+                          LTATask.generate_from_logits,
+                          torch.Generator().manual_seed(3), cpu)
+    else:
+        jval.validate(jstep, params, None, jd[task]["dl_val"], jm, task)
+        tval.validate(tstep, None, td[task]["dl_val"], tm, task, cpu)
+    pre, jpre = (np.concatenate(m._pre_features) for m in (tm, jm))
+    post, jpost = (np.concatenate(m._post_features) for m in (tm, jm))
+    np.testing.assert_array_equal(pre, jpre)
+    np.testing.assert_allclose(post, jpost, rtol=1e-4, atol=1e-5)
+    if task == "oscc":
+        assert tm.feature_embedding("post").shape == (len(post), 2)
+        assert tm.feature_embedding("pre", max_points=7).shape == (7, 2)
+    empty = tmeters.build_meter_for_dataset(td[task]["val"],
+                                            save_features=True)
+    assert empty.feature_embedding() is None
 
 
 def test_generate_from_logits_matches_the_softmax():
