@@ -60,7 +60,7 @@ Phases, any failure exits non-zero and prints no result:
              and seed, counts zeroed just before and read just after: its
              per-epoch losses and norms equal the driver's (bit for bit is
              reported; rtol 1e-5 is required), one fused_adam launch per
-             optimizer step, the native gather in use by the counts the
+             optimizer step and no cosine_knn launch, the native gather in use by the counts the
              workers send back, the pools stopped at the end. Then ms per
              optimizer step over epochs 2-3 with loader_processes 0, 2 and
              4 in turns (0, 2, 4, 4, 2, 0), each run's losses held to the
@@ -73,7 +73,7 @@ Phases, any failure exits non-zero and prints no result:
              sequences of 20 a head, prob_change in [0, 1], PNR frames
              within their windows) and OSCC from MTL_oscc, counts zeroed
              just before and read just after (one cosine_knn launch per
-             batch); then OSCC from MTL_oscc on val, whose decisions'
+             batch, no fused_adam launch); then OSCC from MTL_oscc on val, whose decisions'
              accuracy equals the cold evaluation's.
 9. tools   - ``egopack_torch.aggregate`` over the driver's run directories
              gives each run's last values; ``python -m egopack_torch.sweep
@@ -110,7 +110,7 @@ Phases, any failure exits non-zero and prints no result:
              after a step in the same window that is not read (the profiler
              has lost a window's first events): busy time, idle share,
              device events, top kernels, and the GEMM kernels by their
-             operands' type from the window with the most events; in any
+             operands' type from the window with the most events; in every
              window the bf16 steps must run GEMMs on bf16 operands (cuBLAS on
              the tensor cores, float32 output), the float32 step in none.
 13. numbers - ms per step; each kernel's device time, launches and bound;
@@ -723,7 +723,7 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
 
 def phase_evaluate(tmp: str, ego: dict) -> tuple:
     """``egopack_torch.evaluate`` cold on the phase-2 artifact; returns its
-    kNN launches and its OSCC metrics."""
+    kNN and fused-Adam launches and its OSCC metrics."""
     tfa.fused_adam.launches = 0
     tkt.cosine_knn.launches = 0
     out = f"{tmp}/metrics.json"
@@ -733,8 +733,8 @@ def phase_evaluate(tmp: str, ego: dict) -> tuple:
                                          f"output={out}"])
     torch.cuda.synchronize()
     knn_launches = tkt.cosine_knn.launches
-    require(knn_launches == ego["val_batches"]
-            and tfa.fused_adam.launches == 0,
+    adam_launches = tfa.fused_adam.launches
+    require(knn_launches == ego["val_batches"] and adam_launches == 0,
             f"evaluate launched cosine_knn {knn_launches} times for "
             f"{ego['val_batches']} validation batches")
     with open(out) as f:
@@ -749,7 +749,7 @@ def phase_evaluate(tmp: str, ego: dict) -> tuple:
         f"{cold['accuracy']!r}, loss {cold['loss']!r} (the driver's last "
         f"validation: {last['accuracy']!r}, {last['loss']!r}); cosine_knn "
         f"launches {knn_launches} in {ego['val_batches']} validation batches")
-    return knn_launches, cold
+    return knn_launches, adam_launches, cold
 
 
 def phase_numbers(mtl, dev, card: str) -> dict:
@@ -1170,6 +1170,7 @@ GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
 
 
 MEASURED = "chip_smoke.measured_step"  # the profiled step's annotation
+PROFILE_WINDOWS = 3  # profiler windows of profile_step
 
 
 def gemm_kernels(prof, path: str) -> dict:
@@ -1202,20 +1203,20 @@ def gemm_kernels(prof, path: str) -> dict:
     return out
 
 
-def profile_step(step, lr: float, path: str, windows: int = 3):
-    """One warm step, then ``windows`` profiler windows (CPU and CUDA,
-    shapes recorded), each of two steps of which the second, annotated
-    ``MEASURED``, is the one read: (GEMM kernels by operand type, the GEMM
-    kernels seen in any window, device busy ms, the idle share of the span
-    from the step's first kernel to its last, device events, the top
-    kernels by device ms). The profiler has lost a window's first device
-    events (a step's first 8 kernels, its first GEMM among them, in two
-    runs), so each window starts with a step that is not read; the numbers
-    come from the window with the most device events."""
+def profile_step(step, lr: float, path: str):
+    """One warm step, then ``PROFILE_WINDOWS`` profiler windows (CPU and
+    CUDA, shapes recorded), each of two steps of which the second,
+    annotated ``MEASURED``, is the one read: (GEMM kernels by operand type
+    of the window read, each window's GEMM kernels, device busy ms, the idle
+    share of the span from the step's first kernel to its last, device
+    events, the top kernels by device ms). The profiler has lost a window's
+    first device events (a step's first 8 kernels, its first GEMM among
+    them, in two runs), so each window starts with a step that is not read;
+    the numbers come from the window with the most device events."""
     step(lr)
     torch.cuda.synchronize()
     taken = []
-    for w in range(windows):
+    for w in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             step(lr)
@@ -1228,7 +1229,7 @@ def profile_step(step, lr: float, path: str, windows: int = 3):
         events = [e for e in device_events(prof)
                   if e.time_range.start >= start and e.name != MEASURED]
         taken.append((events, gemm_kernels(prof, f"{path}.{w}")))
-    seen = set().union(*(gemms for _, gemms in taken))
+    windows = [set(gemms) for _, gemms in taken]
     events, gemms = max(taken, key=lambda t: len(t[0]))
     require(bool(events), "the profiler recorded no device events")
     span = (max(e.time_range.end for e in events)
@@ -1239,7 +1240,7 @@ def profile_step(step, lr: float, path: str, windows: int = 3):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return gemms, seen, busy / 1e3, 1.0 - busy / span, len(events), top
+    return gemms, windows, busy / 1e3, 1.0 - busy / span, len(events), top
 
 
 def loss_gap(a: dict, b: dict, key: str) -> float:
@@ -1311,20 +1312,23 @@ def phase_bf16(dev, card: str, tmp: str) -> None:
                       {"compute_dtype": torch.bfloat16,
                        "propagate_dtype": torch.bfloat16})):
         step = build_mtl_step(BATCH, FEAT, HIDDEN, device=dev, **kw)
-        gemms, seen, busy, idle, n_events, top = profile_step(
+        gemms, windows, busy, idle, n_events, top = profile_step(
             step, LR, f"{tmp}/trace_{name}.json")
         del step
-        bf16 = sorted(k for k in seen if "BFloat16" in k[0])
+        bf16 = [sorted(k for k in seen if "BFloat16" in k[0])
+                for seen in windows]
         log(f"bf16: phase-1 step, {name}: device busy {busy!r} ms, idle "
             f"share {idle!r}, {n_events} device events; top kernels "
             f"{json.dumps([[n[:90], ms] for n, ms in top])}")
         for (dtype, dims, kname), (n, us) in sorted(gemms.items()):
             log(f"bf16:   GEMM {dtype} {dims} x{n} {us!r} us {kname[:100]}")
         if name != "float32":
-            require(bf16, f"{name}: no matrix product with bf16 operands "
-                    f"launched a kernel: {sorted(seen)}")
+            for w, (seen, found) in enumerate(zip(windows, bf16)):
+                require(found, f"{name}: no matrix product with bf16 "
+                        f"operands launched a kernel in profiler window {w}: "
+                        f"{sorted(seen)}")
         else:
-            require(not bf16, f"float32 step ran bf16 GEMMs: {bf16}")
+            require(not any(bf16), f"float32 step ran bf16 GEMMs: {bf16}")
 
 
 POOL_TURNS = (0, 2, 4, 4, 2, 0)  # loader_processes of the timed runs
@@ -1380,20 +1384,25 @@ def phase_pool(tmp: str, drv: dict, card: str) -> dict:
     worker processes a loader, in turns, the device's idle share of the
     loop with 0 and 2, and one epoch with ``EGOPACK_POOL_CTX=spawn``."""
     tfa.fused_adam.launches = 0
+    tkt.cosine_knn.launches = 0
     calls0 = dict(native.PATH_CALLS)
     result = train_main(pool_overrides(drv["root"], tmp, 2, DRIVER_EPOCHS))
     torch.cuda.synchronize()
     launches = tfa.fused_adam.launches
+    knn_launches = tkt.cosine_knn.launches
     steps = sum(s["steps"] for s in result["epochs"])
     gathers = {k: native.PATH_CALLS[k] - calls0[k] for k in calls0}
     require(launches == steps == drv["steps"],
             f"fused_adam launched {launches} times in {steps} optimizer steps")
+    require(knn_launches == 0,
+            f"the phase-1 driver launched cosine_knn {knn_launches} times")
     require(gathers["native"] > 0 and gathers["numpy"] == 0,
             f"feature gathers by path, summed from the workers: {gathers}")
     require(loaders_closed(result), "worker pools left running")
     exact = same_records(train_records(result), drv["records"], "pool")
     log(f"pool: loader_processes=2, {DRIVER_EPOCHS} epochs, {steps} optimizer "
-        f"steps: fused_adam launches {launches}; feature gathers in the "
+        f"steps: fused_adam launches {launches}, cosine_knn launches "
+        f"{knn_launches}; feature gathers in the "
         f"workers {json.dumps(gathers)}; per-epoch losses and norms "
         f"{'equal bit for bit to' if exact else 'within rtol 1e-5 of'} the "
         "in-process run's; pools stopped at the end")
@@ -1444,7 +1453,8 @@ def phase_pool(tmp: str, drv: dict, card: str) -> dict:
         f"{spawn_s:.1f} s ({result['epochs'][0]['train_s']!r} s training); "
         f"its losses {'equal bit for bit to' if exact_spawn else 'within rtol 1e-5 of'} "
         "the in-process run's first epoch")
-    return {"launches": launches, "steps": steps, "ms": ms, "data_ms": data,
+    return {"launches": launches, "knn_launches": knn_launches,
+            "steps": steps, "ms": ms, "data_ms": data,
             "exact": exact and exact_spawn, "idle": idle}
 
 
@@ -1510,8 +1520,9 @@ def phase_predict(tmp: str, drv: dict, ego: dict, cold: dict) -> dict:
     preds = predict_main(ego_args + [split, f"output={tmp}/predict_ego.json"])
     torch.cuda.synchronize()
     knn_launches = tkt.cosine_knn.launches
+    adam_launches = tfa.fused_adam.launches
     require(len(preds) == n_windows and knn_launches == batches
-            and tfa.fused_adam.launches == 0,
+            and adam_launches == 0,
             f"predict from {EGOPACK_ARTIFACT}: {len(preds)} predictions, "
             f"cosine_knn launched {knn_launches} times for {batches} batches")
     val = predict_main(ego_args + ["validation_split=val",
@@ -1529,7 +1540,8 @@ def phase_predict(tmp: str, drv: dict, ego: dict, cold: dict) -> dict:
         f"test_unannotated, cosine_knn launches {knn_launches} in {batches} "
         f"batches; on val its decisions' accuracy {acc!r} equals the cold "
         "evaluation's")
-    return {"knn_launches": knn_launches, "batches": batches}
+    return {"knn_launches": knn_launches, "adam_launches": adam_launches,
+            "batches": batches}
 
 
 def phase_tools(tmp: str) -> None:
@@ -1605,7 +1617,7 @@ def run(dev, card: str):
         drv_launches, drv_steps, drv_ms = (drv["launches"], drv["steps"],
                                            drv["ms_step"])
         ego_drv = phase_egopack_driver(tmp, card)
-        eval_launches, cold = phase_evaluate(tmp, ego_drv)
+        eval_launches, eval_adam, cold = phase_evaluate(tmp, ego_drv)
         pool = phase_pool(tmp, drv, card)
         pred = phase_predict(tmp, drv, ego_drv, cold)
         phase_tools(tmp)
@@ -1630,9 +1642,10 @@ def run(dev, card: str):
         "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
         "launches_by_path": {"train": launches, "driver": drv_launches,
                              "egopack_driver": ego_drv["adam_launches"],
-                             "evaluate": 0, "egopack": ego_steps,
+                             "evaluate": eval_adam, "egopack": ego_steps,
                              "bench": bench_run["adam"],
-                             "pool": pool["launches"], "predict": 0},
+                             "pool": pool["launches"],
+                             "predict": pred["adam_launches"]},
     }, {
         "name": "cosine_knn", "route": "cuda",
         "source": "egopack_torch/ops/csrc/knn_topk.cu",
@@ -1642,7 +1655,8 @@ def run(dev, card: str):
         "launches_by_path": {"egopack_driver": ego_drv["knn_launches"],
                              "evaluate": eval_launches,
                              "egopack": knn_launches,
-                             "bench": bench_run["knn"], "pool": 0,
+                             "bench": bench_run["knn"],
+                             "pool": pool["knn_launches"],
                              "predict": pred["knn_launches"]},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "

@@ -52,20 +52,32 @@ def test_imports_no_jax(imported, module):
     assert imported[module] == [], (module, imported[module])
 
 
-@pytest.mark.parametrize("module", ["egopack_torch.predict",
-                                    "egopack_torch.sweep",
-                                    "egopack_torch.aggregate",
-                                    "egopack_torch.utils.plots",
-                                    "egopack_torch.ops.criterion"])
-def test_tool_imports_no_jax_alone(module):
+TOOLS = ["egopack_torch.predict", "egopack_torch.sweep",
+         "egopack_torch.aggregate", "egopack_torch.utils.plots",
+         "egopack_torch.ops.criterion"]
+
+
+@pytest.fixture(scope="module")
+def alone():
+    """One interpreter for each tool, all started at once."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = {m: subprocess.Popen([sys.executable, "-c", _PROBE, m], cwd=REPO,
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for m in TOOLS}
+    yield procs
+    for proc in procs.values():
+        proc.kill()
+        proc.wait()
+
+
+@pytest.mark.parametrize("module", TOOLS)
+def test_tool_imports_no_jax_alone(alone, module):
     """Each tool in an interpreter of its own: nothing imported before it
     hides what it imports."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _PROBE, module], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {module: []}
+    out, err = alone[module].communicate(timeout=300)
+    assert alone[module].returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1]) == {module: []}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

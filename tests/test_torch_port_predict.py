@@ -1,6 +1,8 @@
 """The port's challenge predictions against ``egopack_tpu.predict`` on the
-same flax-format artifacts (JAX's ``MTL_ar-lta-pnr`` of phase 1 and its
-phase-2 ``MTL_oscc``), on the fixture's ``test_unannotated`` split.
+same flax-format artifacts (``MTL_ar-lta-pnr`` of phase 1 and the phase-2
+``MTL_oscc``, written by the port's drivers, which JAX's ``load_artifact``
+reads as its own: ``tests/test_torch_port_driver_phase2.py``), on the
+fixture's ``test_unannotated`` split.
 
 OSCC: the same keys, ``prob_change`` at rtol 1e-5 / atol 1e-6, and the
 same decision wherever the two probabilities lie further apart than that
@@ -21,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-import main_egopack as jmain_egopack
-import main_temporal as jmain_temporal
+from egopack_torch import main_egopack as tmain_egopack
+from egopack_torch import main_temporal as tmain_temporal
 from egopack_torch import predict as tpredict
 from egopack_torch.config import compose, default_config_dir
 from egopack_torch.data.synthetic import generate_ego4d_fixture
@@ -48,18 +50,20 @@ def base(root, tmp, *extra):
 
 @pytest.fixture(scope="module")
 def artifacts(tmp_path_factory):
-    """JAX's phase-1 and phase-2 artifacts, one epoch each."""
+    """Phase-1 and phase-2 artifacts, one epoch each, trained by the port
+    on the CPU (JAX's drivers take a minute to compile the same runs)."""
     root = str(tmp_path_factory.mktemp("ego4d"))
     generate_ego4d_fixture(root, feature_dim=16, seed=4)
-    tmp = str(tmp_path_factory.mktemp("jax"))
-    jmain_temporal.main(base(root, tmp, "num_epochs=1", "save_model=True",
-                             "validation_split=val",
+    tmp = str(tmp_path_factory.mktemp("artifacts"))
+    tmain_temporal.main(base(root, tmp, "num_epochs=1", "save_model=True",
+                             "validation_split=val", "device=cpu",
                              "enabled_tasks=[ar,lta,pnr]"))
-    jmain_egopack.main(base(root, tmp, "num_epochs=1", "save_model=True",
+    tmain_egopack.main(base(root, tmp, "num_epochs=1", "save_model=True",
                             "validation_split=val", "enable_graphone=True",
                             "enabled_tasks=[oscc]", f"resume_from={MTL}",
                             "graphone.k=2", "graphone.depth=1",
-                            "graphone.hidden_size=32", "optimizer.lr=1e-3"))
+                            "graphone.hidden_size=32", "optimizer.lr=1e-3",
+                            "device=cpu"))
     return root, tmp
 
 
