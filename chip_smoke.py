@@ -119,6 +119,25 @@ Phases, any failure exits non-zero and prints no result:
              ``torch.optim.Adam(fused=True)`` and ``torch.topk`` over the
              masked ``1 - bmm``. The card's clocks, power and temperature
              are read beside each kNN window.
+14. multigpu - run after tools. (a) The phase-1 CLI of the driver phase
+             with ``parallel.multihost=True``: ``torch.distributed`` on NCCL
+             at world size 1, the grid and its groups made; its epoch
+             records and its artifact equal bit for bit to the driver
+             phase's, one fused_adam launch per step. (b) Two ranks on the
+             one card, each with its own time limit (``parallel/launch.py``):
+             first whether NCCL takes two ranks on one device (its error is
+             printed once when it refuses, and the runs then name gloo over
+             CUDA tensors); then the phase-1 CLI for 2 epochs, on the
+             driver's 3-epoch LR schedule, with parallel.data=2 and with
+             parallel.model=2, each rank counting its launches from 0:
+             epoch records within rtol 1e-4 of the driver phase's, one
+             fused_adam launch per step on each rank (on its shards); the
+             phase-2 CLI for 2 epochs with parallel.model=2 (banks split by
+             row): losses within rtol 1e-4 and OSCC accuracy equal to the
+             egopack_driver phase's, on each rank one fused_adam launch per
+             step and one cosine_knn launch (over its half of the bank
+             rows) per step and per OSCC validation batch; its artifact,
+             evaluated cold in this process, gives its last validation.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -157,6 +176,7 @@ from egopack_torch.models.pooling import ENCODINGS, TRNPooling
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops.knn import prototype_topk
+from egopack_torch.parallel.launch import check_ranks, free_port, run_ranks
 from egopack_torch.predict import main as predict_main
 from egopack_torch.profiling import (busy_us, device_events, fp32_peak,
                                      hbm_bytes_per_s, mean_us, tf32_peak,
@@ -556,6 +576,7 @@ def phase_driver(tmp: str, card: str) -> dict:
             and meta == {"tasks": list(ACTIVE), "num_epochs": DRIVER_EPOCHS},
             f"artifact meta {meta}")
     state = interop.from_flax(payload)
+    state_first = state
     params = result["system"].params()
     require(sorted(state) == sorted(params), "artifact leaves differ")
     for n, v in state.items():
@@ -589,7 +610,7 @@ def phase_driver(tmp: str, card: str) -> dict:
     payload.pop("epoch")
     return {"state": interop.from_flax(payload), "launches": launches,
             "steps": steps, "ms_step": ms_step, "root": root,
-            "records": records}
+            "records": records, "state_first": state_first}
 
 
 def egopack_overrides(root: str, tmp: str, epochs: int):
@@ -646,6 +667,8 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
             f"{DRIVER_EPOCHS} epochs")
     with open(f"{result['run_dir']}/metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
+    val_acc = {r["step"]: r["val/oscc/accuracy"] for r in records
+               if "val/oscc/accuracy" in r}
     losses = [r for r in records if "train/oscc/loss" in r]
     require(len(losses) == DRIVER_EPOCHS, f"{len(losses)} epoch records")
     for r in losses:
@@ -718,7 +741,8 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
             "knn_launches": knn_launches, "steps": steps,
             "val_batches": val_batches, "ms_step": ms_step,
             "data_ms": data_ms, "sweep_s": result["sweep_s"],
-            "last_val": again["val_metrics"]["oscc"]}
+            "last_val": again["val_metrics"]["oscc"],
+            "records": train_records(result), "val_acc": val_acc}
 
 
 def phase_evaluate(tmp: str, ego: dict) -> tuple:
@@ -1585,6 +1609,228 @@ def phase_tools(tmp: str) -> None:
         "-m egopack_torch.main_temporal")
 
 
+# the multi-GPU phase: a rank of the two-rank runs reports its launches
+MG_EPOCHS = 2  # epochs of the two-rank runs, on the 3-epoch LR schedule
+MG_RANK_S = 300  # each rank's time limit
+MG_RUNNER = """
+import json, sys, time
+import torch
+from egopack_torch.ops import fused_adam as tfa, knn_topk as tkt
+from egopack_torch.%s import main
+tfa.fused_adam.launches = 0
+tkt.cosine_knn.launches = 0
+t0 = time.perf_counter()
+result = main(sys.argv[1:])
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+stats = result["epochs"]
+print(json.dumps({
+    "rank": result["mesh"].rank, "mesh": result["mesh"].shape,
+    "adam": tfa.fused_adam.launches, "knn": tkt.cosine_knn.launches,
+    "steps": sum(s["steps"] for s in stats),
+    "val_batches": len(result["dsets"]["oscc"]["dl_val"]),
+    "run_dir": result["run_dir"], "seconds": time.perf_counter() - t0,
+    "ms_step": stats[-1]["train_s"] / stats[-1]["steps"] * 1e3,
+    "backend": torch.distributed.get_backend()}))
+"""
+NCCL_PROBE = """
+import torch, torch.distributed as dist
+from egopack_torch.parallel import multihost as mh
+dev = mh.initialize(torch.device("cuda"))
+t = torch.ones(1, device=dev)
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print(t.item())
+"""
+
+
+def with_dirs(overrides, base: str):
+    """``overrides`` writing artifacts, outputs and checkpoints under
+    ``base``."""
+    keys = ("artifact_dir=", "output_dir=", "checkpoint.dir=")
+    return [o for o in overrides if not o.startswith(keys)] + [
+        f"artifact_dir={base}/artifacts", f"output_dir={base}/outputs",
+        f"checkpoint.dir={base}/checkpoints"]
+
+
+def run_two_ranks(module: str, overrides, backend: str, what: str):
+    """``module``'s CLI as two ranks on the one card (``LOCAL_RANK`` 0 and
+    1 both map to cuda:0); returns each rank's report."""
+    env = dict(os.environ, EGOPACK_DIST_BACKEND=backend)
+    t0 = time.perf_counter()
+    res = run_ranks([sys.executable, "-c", MG_RUNNER % module, *overrides],
+                    2, MG_RANK_S, env=env, cwd=str(HERE))
+    check_ranks(res, what)
+    reports = [json.loads(r.stdout.strip().splitlines()[-1]) for r in res]
+    require([r["rank"] for r in reports] == [0, 1], f"{what}: ranks")
+    for r in reports:
+        r["wall_s"] = time.perf_counter() - t0
+    return reports
+
+
+def records_close(ours: dict, ref: dict, epochs, what: str) -> float:
+    """Every ``train/`` record of ``epochs`` within rtol 1e-4 of ``ref``;
+    returns the largest relative gap."""
+    gap = 0.0
+    for e in epochs:
+        require(set(ours[e]) == set(ref[e]), f"{what}: epoch {e} keys")
+        for k, v in ref[e].items():
+            rel = abs(ours[e][k] - v) / max(abs(v), 1e-12)
+            require(math.isclose(ours[e][k], v, rel_tol=1e-4, abs_tol=1e-7),
+                    f"{what}: epoch {e} {k} {ours[e][k]!r} against {v!r}")
+            gap = max(gap, rel)
+    return gap
+
+
+def nccl_refuses_two_ranks() -> tuple:
+    """Whether NCCL refuses two ranks on the one card, and its error."""
+    env = dict(os.environ, EGOPACK_DIST_BACKEND="nccl")
+    res = run_ranks([sys.executable, "-c", NCCL_PROBE], 2, 120, env=env,
+                    cwd=str(HERE))
+    failed = [r for r in res if r.returncode != 0]
+    if not failed:
+        return False, ""
+    first = sorted(failed, key=lambda r: (r.ended, r.rank))[0]
+    lines = [l.strip() for l in first.stderr.splitlines()]
+    said = ([l for l in lines if "Duplicate GPU" in l]
+            or [l for l in lines if "Error" in l] or lines[-1:])
+    why = "timed out" if first.timed_out else (
+        said[0] if said else f"exit {first.returncode}")
+    return True, why
+
+
+def phase_multigpu(tmp: str, drv: dict, ego: dict, card: str) -> dict:
+    """(a) the phase-1 driver with ``torch.distributed`` at world size 1 on
+    NCCL, equal bit for bit to the driver phase; (b) two ranks on the one
+    card: phase 1 with data 2 and with model 2, phase 2 with model 2 (banks
+    split by row), each held to the one-process runs, and the phase-2
+    artifact evaluated cold in this process."""
+    import torch.distributed as dist
+    # (a) world size 1
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                      RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+    tfa.fused_adam.launches = 0
+    t0 = time.perf_counter()
+    try:
+        one = train_main(with_dirs(driver_overrides(drv["root"], tmp,
+                                                    DRIVER_EPOCHS),
+                                   f"{tmp}/mg_world1")
+                         + ["parallel.multihost=True"])
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+        world = dist.get_world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK",
+                  "WORLD_SIZE"):
+            os.environ.pop(k, None)
+    world1_s = time.perf_counter() - t0
+    adam_world1 = tfa.fused_adam.launches
+    steps = sum(s["steps"] for s in one["epochs"])
+    require(backend == "nccl" and world == 1,
+            f"world size 1 ran on {backend} with {world} ranks")
+    require(adam_world1 == steps, f"fused_adam launched {adam_world1} times "
+            f"in {steps} steps at world size 1")
+    require(train_records(one) == drv["records"],
+            "world size 1: the epoch records differ from the driver's")
+    payload, _ = load_artifact(f"{tmp}/mg_world1/artifacts", ARTIFACT)
+    payload.pop("epoch")
+    state = interop.from_flax(payload)
+    require(sorted(state) == sorted(drv["state_first"])
+            and all(torch.equal(v, drv["state_first"][n])
+                    for n, v in state.items()),
+            "world size 1: the artifact differs from the driver's")
+    log(f"multigpu: the phase-1 driver with torch.distributed on {backend} "
+        f"at world size 1 ({DRIVER_EPOCHS} epochs, {steps} steps, "
+        f"{world1_s:.1f} s): epoch records and artifact {ARTIFACT} equal "
+        f"bit for bit to the driver phase's; fused_adam launches "
+        f"{adam_world1}")
+    del one
+
+    # (b) two ranks on the one card
+    refused, why = nccl_refuses_two_ranks()
+    backend = "gloo" if refused else "nccl"
+    if refused:
+        log(f"multigpu: NCCL refuses two ranks on one card: {why}")
+    log(f"multigpu: the two-rank runs name the {backend} backend"
+        + (" over CUDA tensors" if backend == "gloo" else ""))
+    torch.cuda.empty_cache()
+    base = driver_overrides(drv["root"], tmp, MG_EPOCHS) + [
+        "checkpoint.enable=False", f"lr_scheduler.T_max={DRIVER_EPOCHS}"]
+    out = {"backend": backend}
+    for name, grid in (("dp2", ["parallel.data=2"]),
+                       ("tp2", ["parallel.data=1", "parallel.model=2"])):
+        reports = run_two_ranks(
+            "main_temporal", with_dirs(base, f"{tmp}/mg_{name}") + grid,
+            backend, f"phase 1 {name}")
+        r0 = reports[0]
+        for r in reports:
+            require(r["adam"] == r["steps"] > 0 and r["knn"] == 0
+                    and r["backend"] == backend,
+                    f"phase 1 {name} rank {r['rank']}: {r}")
+        gap = records_close(train_records(r0),
+                            drv["records"], range(1, MG_EPOCHS + 1),
+                            f"phase 1 {name}")
+        log(f"multigpu: phase 1 {name} (mesh {r0['mesh']}): {MG_EPOCHS} "
+            f"epochs, {r0['steps']} steps a rank in {r0['wall_s']:.1f} s; "
+            f"fused_adam launches {[r['adam'] for r in reports]} by rank; "
+            f"epoch records within rtol {gap:.2e} of the driver's; "
+            f"{r0['ms_step']!r} ms per step in epoch {MG_EPOCHS} on {card}")
+        out[name] = {"adam": [r["adam"] for r in reports],
+                     "steps": r0["steps"], "ms_step": r0["ms_step"],
+                     "gap": gap, "wall_s": r0["wall_s"]}
+
+    art = f"{tmp}/mg_egopack/artifacts"
+    os.makedirs(art, exist_ok=True)
+    shutil.copytree(f"{tmp}/artifacts/{ARTIFACT}", f"{art}/{ARTIFACT}")
+    ego_args = with_dirs(egopack_overrides(ego["root"], tmp, MG_EPOCHS),
+                         f"{tmp}/mg_egopack") + [
+        "checkpoint.enable=False", f"lr_scheduler.T_max={DRIVER_EPOCHS}",
+        "parallel.data=1", "parallel.model=2"]
+    reports = run_two_ranks("main_egopack", ego_args, backend,
+                            "phase 2 tp2")
+    r0 = reports[0]
+    for r in reports:
+        require(r["adam"] == r["steps"] > 0
+                and r["knn"] == r["steps"] + r["val_batches"] * MG_EPOCHS,
+                f"phase 2 rank {r['rank']}: {r}")
+    recs = train_records({"run_dir": r0["run_dir"]})
+    gap = records_close(recs, ego["records"], range(1, MG_EPOCHS + 1),
+                        "phase 2 tp2")
+    with open(f"{r0['run_dir']}/metrics.jsonl") as f:
+        vals = [json.loads(line) for line in f]
+    acc = {v["step"]: v["val/oscc/accuracy"] for v in vals
+           if "val/oscc/accuracy" in v}
+    last = [v for v in vals if "val/oscc/loss" in v][-1]
+    require(all(acc[e] == ego["val_acc"][e] for e in range(1, MG_EPOCHS + 1)),
+            f"phase 2 tp2: OSCC accuracy {acc} against {ego['val_acc']}")
+    cold = evaluate_main([o for o in ego_args
+                          if not o.startswith(("resume_from=", "parallel."))]
+                         + [f"resume_from={EGOPACK_ARTIFACT}"])["oscc"]
+    require(cold["accuracy"] == last["val/oscc/accuracy"]
+            and math.isclose(cold["loss"], last["val/oscc/loss"],
+                             rel_tol=1e-5),
+            f"cold evaluation {cold} of the two-rank artifact against its "
+            f"last validation {last}")
+    log(f"multigpu: phase 2 tp2 (banks split by row over 2 ranks): "
+        f"{MG_EPOCHS} epochs, {r0['steps']} steps a rank in "
+        f"{r0['wall_s']:.1f} s; fused_adam launches "
+        f"{[r['adam'] for r in reports]}, cosine_knn launches "
+        f"{[r['knn'] for r in reports]} by rank = steps + "
+        f"{r0['val_batches']} OSCC validation batches x {MG_EPOCHS}; losses "
+        f"within rtol {gap:.2e}, OSCC accuracy {acc} equal to the "
+        f"one-process run's; its artifact evaluated cold in one process: "
+        f"accuracy {cold['accuracy']!r}, loss {cold['loss']!r}; "
+        f"{r0['ms_step']!r} ms per step in epoch {MG_EPOCHS} on {card}")
+    out["world1"] = {"adam": adam_world1, "steps": steps, "s": world1_s}
+    out["ego_tp2"] = {"adam": [r["adam"] for r in reports],
+                      "knn": [r["knn"] for r in reports],
+                      "steps": r0["steps"], "ms_step": r0["ms_step"],
+                      "gap": gap, "wall_s": r0["wall_s"]}
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     def timed(load):
@@ -1621,6 +1867,7 @@ def run(dev, card: str):
         pool = phase_pool(tmp, drv, card)
         pred = phase_predict(tmp, drv, ego_drv, cold)
         phase_tools(tmp)
+        mg = phase_multigpu(tmp, drv, ego_drv, card)
     ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(
         mtl, drv.pop("state"), dev, card)
     phase_small_egopack_vs_cpu(dev)
@@ -1645,7 +1892,12 @@ def run(dev, card: str):
                              "evaluate": eval_adam, "egopack": ego_steps,
                              "bench": bench_run["adam"],
                              "pool": pool["launches"],
-                             "predict": pred["adam_launches"]},
+                             "predict": pred["adam_launches"],
+                             "multigpu_world1": mg["world1"]["adam"],
+                             "multigpu_dp2_by_rank": mg["dp2"]["adam"],
+                             "multigpu_tp2_by_rank": mg["tp2"]["adam"],
+                             "multigpu_egopack_tp2_by_rank":
+                                 mg["ego_tp2"]["adam"]},
     }, {
         "name": "cosine_knn", "route": "cuda",
         "source": "egopack_torch/ops/csrc/knn_topk.cu",
@@ -1657,7 +1909,9 @@ def run(dev, card: str):
                              "egopack": knn_launches,
                              "bench": bench_run["knn"],
                              "pool": pool["knn_launches"],
-                             "predict": pred["knn_launches"]},
+                             "predict": pred["knn_launches"],
+                             "multigpu_egopack_tp2_by_rank":
+                                 mg["ego_tp2"]["knn"]},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
@@ -1676,7 +1930,12 @@ def run(dev, card: str):
                f"{pool['launches']} fused_adam launches in {pool['steps']} "
                f"steps of the pooled phase-1 driver; {pred['knn_launches']} "
                f"cosine_knn launches in {pred['batches']} batches of predict "
-               f"from {EGOPACK_ARTIFACT})")
+               f"from {EGOPACK_ARTIFACT}; two ranks on {mg['backend']}: "
+               f"fused_adam {mg['dp2']['adam']} by rank in "
+               f"{mg['dp2']['steps']} steps with data 2, {mg['tp2']['adam']} "
+               f"with model 2, {mg['ego_tp2']['adam']} in phase 2 with "
+               f"model 2, where cosine_knn ran {mg['ego_tp2']['knn']} times "
+               f"by rank on half the bank rows)")
     return kernels, summary
 
 

@@ -75,16 +75,27 @@ class DataLoader:
     """Deterministic, re-iterable loader over a dense dataset (reference
     ``utils/dataloading.py:56-70``): seeded shuffle, ``drop_last`` for
     train; val pads its last partial batch and masks it with ``valid``.
-    ``prefetch > 0`` builds batches in a background thread."""
+    ``prefetch > 0`` builds batches in a background thread.
+
+    ``process_shard=(index, count)``: the global epoch schedule is computed
+    alike on every rank and this one builds only block ``index`` of
+    ``count`` equal blocks of every global batch; a block that holds no
+    sample (the short last batch) is a batch of ``valid=False`` filler
+    (egopack_tpu/data/loader.py:62-80)."""
 
     def __init__(self, dataset: BaseDataset, batch_size: int, shuffle: bool,
-                 drop_last: bool, seed: int = 0, prefetch: int = 4):
+                 drop_last: bool, seed: int = 0, prefetch: int = 4,
+                 process_shard: Optional[tuple] = None):
+        if process_shard is not None and batch_size % process_shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split into "
+                             f"{process_shard[1]} process shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.process_shard = process_shard
         self._epoch = 0
         self._pass = 0  # re-iteration counter within an epoch (wraparound)
 
@@ -120,12 +131,24 @@ class DataLoader:
         content does not depend on who builds it (the schedule is global and
         each sample's rng is keyed by its dataset index), so W strided
         producers interleave into the single-producer stream."""
+        size = self.batch_size
         for k, idxs in enumerate(self._index_batches(pass_idx)):
             if stride is not None and k % stride[1] != stride[0]:
                 continue
+            if self.process_shard is not None:
+                index, count = self.process_shard
+                size = self.batch_size // count
+                idxs = idxs[index * size:(index + 1) * size]
+            if len(idxs) == 0:
+                # every rank yields as many batches: this one is filler
+                batch = collate([self.dataset.get(0, self._sample_rng(
+                    pass_idx, 0))], pad_to=size)
+                batch["valid"][:] = False
+                yield batch
+                continue
             samples = [self.dataset.get(int(i), self._sample_rng(pass_idx, i))
                        for i in idxs]
-            yield collate(samples, pad_to=self.batch_size)
+            yield collate(samples, pad_to=size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         # each re-iteration (multiloader wraparound) reshuffles and redraws
@@ -286,6 +309,10 @@ class WorkerPoolLoader:
     def dataset(self) -> BaseDataset:
         return self.loader.dataset
 
+    @property
+    def process_shard(self) -> Optional[tuple]:
+        return self.loader.process_shard
+
     def _start(self) -> None:
         for w in range(self.num_workers):
             cq = self._ctx.Queue()
@@ -357,13 +384,15 @@ Loader = Union[DataLoader, WorkerPoolLoader]
 
 def build_dataloader(dataset: BaseDataset, batch_size: int, shuffle: bool,
                      num_workers: int, drop_last: bool, seed: int = 0,
-                     worker_processes: int = 0) -> Loader:
+                     worker_processes: int = 0,
+                     process_shard: Optional[tuple] = None) -> Loader:
     """Signature-compatible with the reference builder; ``num_workers``
     sets the prefetch depth; ``worker_processes > 0`` builds the batches in
     that many worker processes (:class:`WorkerPoolLoader`), with the same
-    stream."""
+    stream; ``process_shard`` as for :class:`DataLoader`."""
     loader = DataLoader(dataset, batch_size, shuffle, drop_last, seed,
-                        prefetch=max(2, num_workers))
+                        prefetch=max(2, num_workers),
+                        process_shard=process_shard)
     if worker_processes > 0:
         return WorkerPoolLoader(loader, worker_processes)
     return loader

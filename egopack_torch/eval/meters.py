@@ -21,6 +21,12 @@ from ..data.osccpnr import Ego4dOSCCDataset, Ego4dPNRDataset
 from . import metrics as M
 
 
+def _mean_of(chunks: List[np.ndarray]) -> float:
+    """Mean over the concatenated per-update arrays, 0.0 without any."""
+    values = np.concatenate(chunks) if chunks else np.zeros(0)
+    return float(np.mean(values)) if values.size else 0.0
+
+
 class BaseMeter:
     """Loss + count tracking; optional feature accumulation for t-SNE plots
     (reference utils/meters/base.py:10-52)."""
@@ -76,6 +82,70 @@ class BaseMeter:
     def loss(self) -> float:
         return self._loss_sum / max(self._loss_count, 1)
 
+    # ---- accumulator state, merged over ranks in sharded validation ----
+    # the per-update list accumulators of a subclass: one entry per update
+    _STATE_LISTS: tuple = ()
+    # features ride the exchange only up to the t-SNE sample budget
+    # (egopack_tpu/eval/meters.py:79-98), subsampled uniformly over the
+    # epoch; this bounds the plots only, every metric merges exactly
+    FEATURE_WIRE_CAP = 2000
+
+    def _capped(self, feats: List[np.ndarray]) -> List[np.ndarray]:
+        total = sum(len(f) for f in feats)
+        if total <= self.FEATURE_WIRE_CAP:
+            return list(feats)
+        cat = np.concatenate([np.asarray(f) for f in feats], axis=0)
+        idx = np.round(np.linspace(0, total - 1,
+                                   self.FEATURE_WIRE_CAP)).astype(np.int64)
+        return [cat[idx]]
+
+    def state(self) -> Dict:
+        """A snapshot of the accumulators: scalars and lists of numeric
+        arrays (``egopack_tpu/eval/meters.py:100-111``)."""
+        st = {"loss_sum": self._loss_sum, "loss_count": self._loss_count,
+              "samples": self._samples,
+              "pre": self._capped(self._pre_features),
+              "post": self._capped(self._post_features)}
+        for name in self._STATE_LISTS:
+            st[name] = list(getattr(self, name))
+        return st
+
+    def merge_state(self, st: Dict, include_loss: bool = True) -> None:
+        """Fold another meter's ``state()`` in after this one's updates
+        (``egopack_tpu/eval/meters.py:113-130``). ``include_loss=False``
+        keeps the loss accumulators: with a global per-batch loss every
+        rank has recorded the same series."""
+        self._logs_cache = None
+        if include_loss:
+            self._loss_sum += st["loss_sum"]
+            self._loss_count += st["loss_count"]
+        self._samples += st["samples"]
+        self._pre_features.extend(st["pre"])
+        self._post_features.extend(st["post"])
+        for name in self._STATE_LISTS:
+            getattr(self, name).extend(st[name])
+
+    def merge_states(self, states: List[Dict]) -> None:
+        """Replace the list accumulators by those of ``states``, the data
+        axis's meters in rank order, interleaved update by update: each
+        update is one global batch's block, so the merged lists hold the
+        rows in the order one process over the global batches appends them
+        and every metric is that process's, exactly. The loss accumulators
+        stay (see ``merge_state``)."""
+        for name in self._STATE_LISTS:
+            n = {len(st[name]) for st in states}
+            if len(n) > 1:
+                raise ValueError(f"ranks metered different numbers of "
+                                 f"batches: {name} {sorted(n)}")
+        self._logs_cache = None
+        self._samples = sum(st["samples"] for st in states)
+        self._pre_features = [f for st in states for f in st["pre"]]
+        self._post_features = [f for st in states for f in st["post"]]
+        for name in self._STATE_LISTS:
+            setattr(self, name, [st[name][i]
+                                 for i in range(len(states[0][name]))
+                                 for st in states])
+
     def print_logs(self) -> List[str]:
         return [f"Loss: {self.loss:.4f}"]
 
@@ -91,6 +161,9 @@ class BaseMeter:
 class Ego4dRecognitionMeter(BaseMeter):
     """Verb/noun top-{1,2,3,5}, macro, calibration, Brier, confusions,
     per-class accuracy tables (reference utils/meters/ego4d.py:34-203)."""
+
+    _STATE_LISTS = ("_verb_logits", "_verb_labels",
+                    "_noun_logits", "_noun_labels")
 
     def __init__(self, dataset, log_confusion: bool = False, **kw):
         super().__init__(**kw)
@@ -188,6 +261,8 @@ class Ego4dRecognitionMeter(BaseMeter):
 class Ego4dOSCCMeter(BaseMeter):
     """2-class micro accuracy (reference utils/meters/ego4d.py:300-329)."""
 
+    _STATE_LISTS = ("_logits", "_labels")
+
     def __init__(self, dataset=None, **kw):
         super().__init__(**kw)
         self._logits, self._labels = [], []
@@ -216,11 +291,14 @@ class Ego4dPNRMeter(BaseMeter):
     (reference utils/meters/ego4d.py:332-389): predicted keyframe index
     is mapped via ``(end−start)/16 · argmax`` then compared to the PNR offset."""
 
+    _STATE_LISTS = ("_probs", "_labels", "loc_errors")
+
     def __init__(self, dataset=None, num_segments: int = 16, **kw):
         super().__init__(**kw)
         self.num_segments = num_segments
         self._probs, self._labels = [], []
-        self.loc_errors: List[float] = []
+        # one array of errors per update
+        self.loc_errors: List[np.ndarray] = []
 
     def update(self, logits, labels, loss: float, start_frame=None,
                end_frame=None, pnr_frame=None):
@@ -230,13 +308,12 @@ class Ego4dPNRMeter(BaseMeter):
         self._labels.append(labels.reshape(-1))
         self.update_loss(loss, labels.shape[0])
         if start_frame is not None:
-            for p, sf, ef, pf in zip(probs, np.asarray(start_frame),
-                                     np.asarray(end_frame),
-                                     np.asarray(pnr_frame)):
-                pred_idx = int(p.argmax())
-                pred_mapped = (ef - sf) / 16 * pred_idx
-                gt = pf - sf
-                self.loc_errors.append(abs(pred_mapped - gt) / 30.0)
+            # the frames' dtype throughout, as per-sample scalars give it
+            sf, ef, pf = (np.asarray(a) for a in (start_frame, end_frame,
+                                                  pnr_frame))
+            step = (ef - sf) / 16
+            pred_mapped = step * probs.argmax(-1).astype(step.dtype)
+            self.loc_errors.append(np.abs(pred_mapped - (pf - sf)) / 30.0)
 
 
     def _logs(self) -> Dict[str, float]:
@@ -246,8 +323,8 @@ class Ego4dPNRMeter(BaseMeter):
             "accuracy": M.binary_accuracy(probs, labels),
             "recall": M.binary_recall(probs, labels),
             "auroc": M.binary_auroc(probs, labels),
-            "localization_error": float(np.mean(self.loc_errors))
-            if self.loc_errors else 0.0,
+            "localization_error": float(np.mean(np.concatenate(
+                self.loc_errors))) if self.loc_errors else 0.0,
             **super()._logs(),
         }
 
@@ -264,6 +341,8 @@ class Ego4dLTAMeter(BaseMeter):
     """Best-of-K edit distance over the 20 forecast steps + node top-1
     (reference utils/meters/ego4d.py:392-453)."""
 
+    _STATE_LISTS = ("_ed_verbs", "_ed_nouns", "_v_logits", "_v_labels",
+                    "_n_logits", "_n_labels")
 
     def __init__(self, dataset, num_nodes: int = 22, num_input: int = 2, **kw):
         super().__init__(**kw)
@@ -287,14 +366,15 @@ class Ego4dLTAMeter(BaseMeter):
         lv = labels[:, 0].reshape(-1, self.num_nodes)
         ln = labels[:, 1].reshape(-1, self.num_nodes)
         ni = self.num_input
-        self._ed_verbs.extend(M.sequence_edit_distance(pv[:, ni:], lv[:, ni:]))
-        self._ed_nouns.extend(M.sequence_edit_distance(pn[:, ni:], ln[:, ni:]))
+        # one array of distances per update
+        self._ed_verbs.append(M.sequence_edit_distance(pv[:, ni:], lv[:, ni:]))
+        self._ed_nouns.append(M.sequence_edit_distance(pn[:, ni:], ln[:, ni:]))
         self.update_loss(loss, labels.shape[0])
 
     def _logs(self) -> Dict[str, float]:
         return {
-            "verbs_ed": float(np.mean(self._ed_verbs)) if self._ed_verbs else 0.0,
-            "nouns_ed": float(np.mean(self._ed_nouns)) if self._ed_nouns else 0.0,
+            "verbs_ed": _mean_of(self._ed_verbs),
+            "nouns_ed": _mean_of(self._ed_nouns),
             "verbs_top1": M.topk_accuracy_micro(np.concatenate(self._v_logits),
                                                 np.concatenate(self._v_labels), 1),
             "nouns_top1": M.topk_accuracy_micro(np.concatenate(self._n_logits),
@@ -315,6 +395,7 @@ class Ego4dAnticipationMeter(BaseMeter):
     """Verb/noun top-k accuracy + mean-class recall
     (reference utils/meters/ego4d.py:206-297)."""
 
+    _STATE_LISTS = ("_v_logits", "_v_labels", "_n_logits", "_n_labels")
 
     def __init__(self, dataset, **kw):
         super().__init__(**kw)

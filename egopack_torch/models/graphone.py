@@ -4,8 +4,9 @@
 - ``build_prototypes``: class-averaged task features over the AR train set
   (reference graphone.py:17-63): a segment sum over the joint
   ``verb*n_nouns+noun`` label by ``index_add_`` on the device, float64
-  accumulation on the host, the bank padded to a multiple of 128 with a
-  validity mask.
+  accumulation on the device (summed over the data axis when the sweep is
+  split over it), the bank padded to a multiple of 128 with a validity
+  mask.
 - ``GraphONE``: per-task frozen prototype banks and ``depth`` SAGE stages
   with max aggregation and no bias (reference graphONE.py:13-141), all T
   tasks in one batched product per stage.
@@ -32,6 +33,7 @@ import torch.nn as nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.knn import prototype_topk
+from ..parallel.collectives import SINGLE, Axis, all_reduce_, reduce_from
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,7 +88,15 @@ class GraphONE(nn.Module):
     (``nn.Embedding.from_pretrained(freeze=True)``, graphONE.py:46-49).
 
     ``knn_impl`` goes to :func:`prototype_topk` (``"auto"``, ``"cuda"`` or
-    ``"plain"``)."""
+    ``"plain"``).
+
+    ``model_axis``: the banks hold this rank's rows of banks split by row
+    over the axis. The k nearest are merged over it, and each neighbour
+    row comes from the rank that holds it: every rank contributes its own
+    rows and zeros elsewhere, summed over the axis, so the gradient of a
+    trained bank reaches its rows on their own rank."""
+
+    model_axis: Axis = SINGLE
 
     def __init__(self, task_labels: Tuple[str, ...], features_size: int = 1024,
                  hidden_size: int = 1024, freeze: bool = True, k: int = 8,
@@ -166,9 +176,18 @@ class GraphONE(nn.Module):
             bank_vals = bank_vals.detach()
 
         idx, _ = prototype_topk(f_stack, bank_vals, bank_mask, self.k,
-                                self.distance_func, impl=self.knn_impl)
+                                self.distance_func, impl=self.knn_impl,
+                                axis=self.model_axis)
         t_ar = torch.arange(len(tasks), device=idx.device)[:, None, None]
-        neighbors = bank_vals[t_ar, idx.long()]                  # (T, M, k, F)
+        if self.model_axis.size == 1:
+            neighbors = bank_vals[t_ar, idx.long()]              # (T, M, k, F)
+        else:
+            p_loc = bank_vals.shape[1]
+            local = idx.long() - self.model_axis.index * p_loc
+            own = (local >= 0) & (local < p_loc)
+            rows = bank_vals[t_ar, local.clamp(0, p_loc - 1)]
+            neighbors = reduce_from(torch.where(own[..., None], rows, 0.0),
+                                    self.model_axis)
         nb_max = neighbors.amax(dim=2)                           # (T, M, F)
 
         cur = f_stack
@@ -224,21 +243,33 @@ def build_prototypes(proto_step: Callable, batches: Iterable[Dict[str,
                                                                  torch.Tensor]],
                      n_verbs: int, n_nouns: int, n_tasks: int,
                      pad_multiple: int = 128,
-                     device: Optional[DeviceLike] = None
-                     ) -> Dict[str, PrototypeBank]:
+                     device: Optional[DeviceLike] = None,
+                     data_axis: Axis = SINGLE) -> Dict[str, PrototypeBank]:
     """Sweep the AR batches and average the task features per seen
     (verb, noun) combo (reference graphone.py:17-63). Sums accumulate in
-    float64 on the host; the bincount is inflated by ``n_tasks``. The banks
-    land on ``device`` (default: the device of the batches)."""
+    float64 on the batches' device; the bincount is inflated by
+    ``n_tasks``. ``data_axis``: each rank swept its own block of every
+    batch, and the sums and counts are summed over the axis (on the
+    device, which NCCL needs). The banks land on ``device`` (default: the
+    device of the batches)."""
     size = n_verbs * n_nouns
-    sums: Dict[str, np.ndarray] = {}
-    counts = np.zeros(size, np.float64)
+    sums: Dict[str, torch.Tensor] = {}
+    counts = None
     for batch in batches:
         if device is None:
             device = batch["x"].device
         s, cnt = proto_step(batch)
-        counts += cnt.cpu().numpy().astype(np.float64) * n_tasks
+        if counts is None:
+            counts = torch.zeros(size, dtype=torch.float64,
+                                 device=cnt.device)
+        counts += cnt.double() * n_tasks
         for t, v in s.items():
-            acc = sums.setdefault(t, np.zeros((size, v.shape[-1]), np.float64))
-            acc += v.cpu().numpy().astype(np.float64)
-    return finalize_prototypes(sums, counts, pad_multiple, device)
+            acc = sums.setdefault(t, torch.zeros(
+                (size, v.shape[-1]), dtype=torch.float64, device=v.device))
+            acc += v.double()
+    if counts is None:
+        raise ValueError("build_prototypes: no batches to sweep")
+    host = {t: all_reduce_(v, data_axis).cpu().numpy()
+            for t, v in sums.items()}
+    return finalize_prototypes(host, all_reduce_(counts, data_axis).cpu()
+                               .numpy(), pad_multiple, device)

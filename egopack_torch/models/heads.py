@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike
 from ..ops.losses import bce_with_logits, cross_entropy, sigmoid_focal_loss
-from .layers import LayerNorm, TLinear, dropout
+from .layers import LayerNorm, TLinear, dropout, uniform
 
 AuxFeatures = Optional[Dict[str, torch.Tensor]]
 
@@ -140,13 +140,16 @@ class LTATask(RecognitionTask):
         logits (reference lta.py:63-71), drawn from ``generator``: returns
         ``([(..., K) int64 per head], logits)``. JAX's keys cannot be
         matched, so the samples agree with the JAX package in distribution
-        only."""
+        only. Each sample inverts the softmax's cumulative sum at a uniform
+        draw, one a (node, sample) pair, so a ``ShardedGenerator`` gives a
+        rank the one-process run's samples of its block."""
         predictions = []
         for head_logits in logits:
-            flat = head_logits.reshape(-1, head_logits.shape[-1])
-            probs = torch.softmax(flat.float(), dim=-1)
-            samples = torch.multinomial(probs, K, replacement=True,
-                                        generator=generator)
+            c = head_logits.shape[-1]
+            flat = head_logits.reshape(-1, c)
+            cdf = torch.softmax(flat.float(), dim=-1).cumsum(-1)
+            u = uniform((flat.shape[0], K), generator, flat.device)
+            samples = torch.searchsorted(cdf, u, right=True).clamp_max(c - 1)
             predictions.append(samples.reshape(*head_logits.shape[:-1], K))
         return predictions, tuple(logits)
 

@@ -18,6 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.collectives import (SINGLE, Axis, all_reduce_, reduce_from,
+                                    sum_over_samples)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,11 +81,50 @@ class _Bf16Linear(torch.autograd.Function):
         return gx, gw, None
 
 
+class ShardedGenerator:
+    """A generator for one rank's block of a batch split over the data
+    axis: each random tensor is drawn at the global batch's shape and this
+    rank's block is kept, so the masks are the one-process run's. The
+    block is ``index`` of ``count`` equal blocks of axis 0, or with
+    ``rows`` the given rows of axis 1 of ``total`` (the multi-task step's
+    concatenated node sets)."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int,
+                 rows: Optional[torch.Tensor] = None, total: int = 0):
+        self.generator = generator
+        self.index, self.count = index, count
+        self.rows, self.total = rows, total
+
+    def with_rows(self, rows: torch.Tensor, total: int) -> "ShardedGenerator":
+        return ShardedGenerator(self.generator, self.index, self.count, rows,
+                                total)
+
+    def rand(self, shape, device) -> torch.Tensor:
+        if self.rows is None:
+            full = torch.rand((self.count * shape[0],) + tuple(shape[1:]),
+                              generator=self.generator, device=device)
+            return full[self.index * shape[0]:(self.index + 1) * shape[0]]
+        if shape[1] != self.rows.numel():
+            raise ValueError(f"{self.rows.numel()} rows for a tensor of "
+                             f"shape {tuple(shape)}")
+        full = torch.rand((shape[0], self.total) + tuple(shape[2:]),
+                          generator=self.generator, device=device)
+        return full.index_select(1, self.rows)
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from a ``torch.Generator`` or a
+    :class:`ShardedGenerator`."""
+    if isinstance(generator, ShardedGenerator):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout`` semantics: kept entries are
     scaled by ``1/keep``). The mask comes from ``generator``, which must
-    live on ``x``'s device."""
+    live on ``x``'s device, or a :class:`ShardedGenerator` over one."""
     if not train or rate == 0.0:
         return x
     if generator is None:
@@ -91,8 +132,8 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, 0.0)
+    u = uniform(x.shape, generator, x.device)
+    return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
 class TLinear(nn.Module):
@@ -132,13 +173,22 @@ class TLinear(nn.Module):
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                reduce_axis: Axis = SINGLE) -> torch.Tensor:
+        """``reduce_axis``: the weight holds this rank's input rows of a
+        row-parallel product; the partial products are summed over the
+        axis, in float32, before the bias and the rounding to ``dtype``."""
         in_dtype = self.dtype or x.dtype
         if in_dtype != torch.bfloat16:
-            return F.linear(x.to(in_dtype), self.weight, self.bias)
+            if reduce_axis.size == 1:
+                return F.linear(x.to(in_dtype), self.weight, self.bias)
+            y = reduce_from(F.linear(x.to(in_dtype), self.weight),
+                            reduce_axis)
+            return y if self.bias is None else y + self.bias
         y = _Bf16Linear.apply(x.to(torch.bfloat16),
                               self.weight.to(torch.bfloat16),
                               self.dtype == torch.bfloat16)
+        y = reduce_from(y, reduce_axis)
         if self.bias is not None:
             y = y + self.bias
         return y if self.dtype is None else y.to(self.dtype)
@@ -174,7 +224,13 @@ class GraphLayerNorm(LayerNorm):
     The reference normalises over the ENTIRE batched node tensor:
     ``(x - mean) / (std(unbiased=False) + eps)``, eps added to the std, not
     the variance, then a per-feature affine. Masked so padded nodes do not
-    enter the statistics. It is not ``F.layer_norm``."""
+    enter the statistics. It is not ``F.layer_norm``.
+
+    With the batch split over the data axis (``data_axis``), the statistics
+    are those of the global batch: the masked sums and counts are summed
+    over the axis (``sum_over_samples``), as GSPMD does for the JAX mesh."""
+
+    data_axis: Axis = SINGLE
 
     def forward(self, x: torch.Tensor, node_mask: Optional[torch.Tensor] = None,
                 task_onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -184,7 +240,9 @@ class GraphLayerNorm(LayerNorm):
         products."""
         dim = x.shape[-1]
         x32 = x.float()
-        if task_onehot is not None:
+        if self.data_axis.size > 1:
+            mean, var = self._global_moments(x32, node_mask, task_onehot)
+        elif task_onehot is not None:
             m = node_mask.float()                                  # (M,)
             cnt = torch.clamp_min(task_onehot @ m * dim, 1.0)      # (T,)
             row_sum = (x32[0] * m[:, None]).sum(-1)                # (M,)
@@ -203,6 +261,29 @@ class GraphLayerNorm(LayerNorm):
             var = (((x32 - mean) ** 2) * m).sum() / count
         y = (x32 - mean) / (torch.sqrt(var) + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    def _global_moments(self, x32: torch.Tensor,
+                        node_mask: Optional[torch.Tensor],
+                        task_onehot: Optional[torch.Tensor]):
+        """Mean and variance over the global batch: each sum is this rank's
+        masked sum, summed over the data axis with its count."""
+        axis, dim = self.data_axis, x32.shape[-1]
+        if task_onehot is not None:
+            m = node_mask.float()                                  # (M,)
+            cnt = torch.clamp_min(all_reduce_(task_onehot @ m * dim, axis),
+                                  1.0)                             # (T,)
+            row_sum = (x32[0] * m[:, None]).sum(-1)
+            mean_t = sum_over_samples(task_onehot @ row_sum, axis) / cnt
+            mean = (task_onehot.t() @ mean_t)[None, :, None]
+            row_var = (((x32 - mean) ** 2)[0] * m[:, None]).sum(-1)
+            var_t = sum_over_samples(task_onehot @ row_var, axis) / cnt
+            return mean, (task_onehot.t() @ var_t)[None, :, None]
+        m = (torch.ones_like(x32[..., :1]) if node_mask is None
+             else node_mask.float()[..., None])
+        count = torch.clamp_min(all_reduce_(m.sum() * dim, axis), 1.0)
+        mean = sum_over_samples((x32 * m).sum(), axis) / count
+        var = sum_over_samples((((x32 - mean) ** 2) * m).sum(), axis) / count
+        return mean, var
 
 
 class DenseSAGEConv(nn.Module):

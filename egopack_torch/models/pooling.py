@@ -13,6 +13,16 @@ over the functional time encoding ``cos(t * w)``, ``w_i = 1/10000^(i/D)``
 (``temporal``). The reference experiments never enable one. ``dtype`` goes
 to ``fc0``, ``fc1`` and ``fc_out`` (``egopack_tpu/models/pooling.py:30``,
 ``:72``, ``:76``).
+
+Tensor parallelism over the model axis (``model_axis``, set when the mesh
+splits ``fc0`` and ``fc1``; ``egopack_torch/parallel/mesh.py``): ``fc0``
+holds this rank's output columns and ``fc1`` its input rows, Megatron-style
+(``egopack_tpu/parallel/mesh.py:69-83``). ``ln0`` normalises the whole
+hidden vector, so ``fc0``'s columns are gathered before it (GSPMD inserts
+that gather for the JAX mesh); ReLU and dropout then run on the gathered
+vector, replicated over the model axis with masks drawn alike on its
+ranks, and each rank feeds its slice to ``fc1``, whose partial products
+are summed over the axis before the bias.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import torch
 import torch.nn as nn
 
 from ..device import DeviceLike
+from ..parallel.collectives import (SINGLE, Axis, copy_to, gather_from,
+                                    scatter_to)
 from .layers import LayerNorm, TLinear, dropout, positional_encoding
 
 ENCODINGS = ("learnt", "positional", "temporal")
@@ -30,6 +42,8 @@ ENCODINGS = ("learnt", "positional", "temporal")
 
 class TRNPooling(nn.Module):
     """(B, N, S, D) -> (B, N, output_size)."""
+
+    model_axis: Axis = SINGLE
 
     def __init__(self, input_size: int, output_size: int, num_segments: int,
                  hidden_size: int = 1024, dropout: float = 0.0,
@@ -85,6 +99,15 @@ class TRNPooling(nn.Module):
         if self.encoding is not None:
             x = x + self.encoding_mlp(self.encoding_table())
         h = x.reshape(b, n, s * d)
+        if self.model_axis.size > 1:
+            ax = self.model_axis
+            h = gather_from(self.fc0(copy_to(h, ax)), ax)
+            h = dropout(torch.relu(self.ln0(h)), self.dropout, train,
+                        generator)
+            h = self.fc1(scatter_to(h, ax), reduce_axis=ax)
+            h = dropout(torch.relu(self.ln1(h)), self.dropout, train,
+                        generator)
+            return self.fc_out(h)
         for fc, ln in ((self.fc0, self.ln0), (self.fc1, self.ln1)):
             h = torch.relu(ln(fc(h)))
             h = dropout(h, self.dropout, train, generator)

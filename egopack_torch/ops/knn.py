@@ -7,6 +7,13 @@ card; the l2 distance has no kernel in the JAX package and stays plain
 PyTorch on every device. Nothing here is differentiable: the reference
 computes its edges under ``torch.no_grad`` (graphONE.py:119-141), the JAX
 package under ``stop_gradient``.
+
+Banks split by row over the model axis (``axis``): each rank finds the k
+nearest among its own rows (the kernel on the card), offsets the indices
+by its first row, and the ``(T, M, k)`` partial results of the axis are
+gathered and merged to the global k smallest, ties to the lower global
+index: the replicated bank's answer (the JAX mesh's ``xla`` path,
+``egopack_tpu/train/driver.py:600-605``).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.collectives import SINGLE, Axis, all_gather
 from .knn_topk import cosine_knn, cosine_knn_reference
 
 IMPLS = ("auto", "cuda", "plain")
@@ -43,7 +51,8 @@ def l2_distance(features: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prototype_topk(features: torch.Tensor, bank: torch.Tensor,
                    bank_mask: torch.Tensor, k: int, distance: str = "cosine",
-                   impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                   impl: str = "auto", axis: Axis = SINGLE
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest valid prototypes per feature row, ordered by (distance,
     index): ``(indices (T, M, k) int32, distances (T, M, k))``. Unbatched
     ``(M, F)`` / ``(P, F)`` / ``(P,)`` inputs give ``(M, k)`` outputs.
@@ -51,7 +60,10 @@ def prototype_topk(features: torch.Tensor, bank: torch.Tensor,
 
     ``impl`` (cosine only): ``"auto"`` launches the kernel on CUDA tensors
     and takes the plain version on CPU tensors; ``"cuda"`` launches the
-    kernel and raises on the CPU; ``"plain"`` takes the plain version."""
+    kernel and raises on the CPU; ``"plain"`` takes the plain version.
+
+    ``axis``: ``bank`` and ``bank_mask`` hold this rank's rows of banks
+    split evenly by row over the axis; indices are global."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     unbatched = features.ndim == 2
@@ -72,6 +84,22 @@ def prototype_topk(features: torch.Tensor, bank: torch.Tensor,
         idx, dist = idx[..., :k].to(torch.int32), dist[..., :k]
     else:
         raise ValueError(f"Unknown distance function: {distance}")
+    if axis.size > 1:
+        idx, dist = merge_shards(idx + axis.index * bank.shape[1], dist, k,
+                                 axis)
     if unbatched:
         return idx[0], dist[0]
     return idx, dist
+
+
+def merge_shards(idx: torch.Tensor, dist: torch.Tensor, k: int,
+                 axis: Axis) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of the axis's partial top-k lists ``(T, M, k)``, each
+    ordered by (distance, global index) and holding rows of lower indices
+    the lower the rank: gathered in rank order, a stable sort by distance
+    keeps that order among equal distances."""
+    idx = torch.cat(all_gather(idx, axis), -1)
+    dist, order = torch.sort(torch.cat(all_gather(dist, axis), -1), dim=-1,
+                             stable=True)
+    return (torch.gather(idx, -1, order[..., :k]).to(torch.int32),
+            dist[..., :k])

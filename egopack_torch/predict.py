@@ -73,6 +73,12 @@ class Predictor:
         if not cfg.resume_from:
             raise ValueError("predict requires resume_from=<artifact>")
         drv.check_supported(cfg)
+        if drv.world_size() > 1:
+            # the JAX package's predict runs in one process too, whatever
+            # parallel.* says (it only pins its kNN path for model > 1)
+            raise NotImplementedError(
+                "predict runs in one process; a predict sharded over "
+                "torchrun's processes is ROADMAP.md Queue 1 item 14")
         self.task = task
         self.cfg = cfg
         self.device = drv.config_device(cfg.get("device", "cuda"))

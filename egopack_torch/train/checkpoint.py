@@ -94,8 +94,10 @@ def unpack_artifact(payload: Dict[str, Any], meta: Dict[str, Any], cfg,
     ``GraphONE`` from ``meta["graphone"]`` (zeros until its parameters are
     loaded), and ``extra``, the flax subtrees to merge over the system's
     (``graphone``; ``graphone_banks`` when the banks trained); for a
-    phase-1 artifact ``(False, None, None, (), late_fusion, {})``. The port
-    runs on one card, so the banks are never sharded."""
+    phase-1 artifact ``(False, None, None, (), late_fusion, {})``. An
+    artifact holds whole banks and parameters, from whatever grid wrote
+    it; on a grid the caller splits them (``parallel/mesh.py:place_params``,
+    ``place_banks``)."""
     from ..config import to_container
     from ..models.graphone import GraphONE, PrototypeBank
 

@@ -17,6 +17,16 @@ Randomness comes from one CPU ``torch.Generator`` per run, seeded by
 two seeds per epoch (the train steps' dropout, the LTA validation samples),
 each for a generator on the run's device. A checkpoint holds that
 generator's state, so a resumed run draws what the straight run draws.
+
+Under ``torchrun`` (a world of more than one process, or
+``parallel.multihost=True``) every process joins ``torch.distributed``
+and takes its place in the ``parallel.data x parallel.model`` grid
+(``egopack_torch/parallel``): its loaders build its block of every global
+batch, its system holds its parameter shards, validation is sharded and
+the meters merged, the prototype sweep is split over the data axis and the
+banks by row over the model axis. Every rank runs the same seeds. Rank 0
+alone writes the run directory, the checkpoints and the artifacts, which
+hold whole tensors, so they load on any grid.
 """
 
 from __future__ import annotations
@@ -41,8 +51,12 @@ from ..eval.validate import to_host, validate, validate_lta, validate_pnr
 from ..io import native
 from ..models.graphone import GraphONE, build_prototypes, make_prototype_step
 from ..models.heads import LTATask, OSCCTask, PNRTask, RecognitionTask
+from ..parallel import mesh as pmesh
+from ..parallel import multihost as mh
+from ..parallel.collectives import shard_of
 from ..utils import plots
-from ..utils.logging import RunLogger, format_run_name, setup_logging
+from ..utils.logging import (NullLogger, RunLogger, format_run_name,
+                             setup_logging)
 from . import optim as topt
 from .checkpoint import (latest_state, load_artifact, merge_loaded_params,
                          restore_state, save_artifact, save_state,
@@ -78,19 +92,29 @@ def config_device(name: Any) -> torch.device:
 
 
 def check_supported(cfg) -> None:
-    """Raise on the settings the port does not run yet, each naming the
-    ROADMAP item that will bring it."""
-    par = cfg.parallel
-    if int(par.get("data", -1)) not in (1, -1) \
-            or int(par.get("model", 1)) != 1 \
-            or bool(par.get("multihost", False)):
-        raise NotImplementedError(
-            f"parallel={to_container(par)}: the port runs on one card "
-            "(parallel.data 1 or -1, parallel.model 1, no multihost); "
-            "multi-GPU is ROADMAP.md Queue 1 item 14")
+    """Note the settings the port takes and ignores."""
     if cfg.get("compilation_cache_dir", None):
         logger.info("compilation_cache_dir=%s is ignored: the port compiles "
                     "no XLA programs", cfg.compilation_cache_dir)
+
+
+def world_size() -> int:
+    """The processes ``torchrun`` started (``WORLD_SIZE``; 1 without it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def setup_mesh(cfg, device: torch.device) -> pmesh.Mesh:
+    """Join ``torch.distributed`` when ``parallel.multihost`` is set or the
+    world has more than one process (``egopack_tpu/train/driver.py:460``),
+    then the ``parallel.data x parallel.model`` grid on this rank's device,
+    and the batch's divisibility over its data axis (``:480-481``)."""
+    par = cfg.parallel
+    if bool(par.get("multihost", False)) or world_size() > 1:
+        device = mh.initialize(device)
+    mesh = pmesh.make_mesh(int(par.get("data", -1)), int(par.get("model", 1)),
+                           device)
+    pmesh.check_batch_divisible(cfg.batch_size, mesh)
+    return mesh
 
 
 def artifact_name(cfg, task_weights: Dict[str, float]) -> str:
@@ -104,15 +128,19 @@ def task_weights_from_cfg(cfg) -> Dict[str, float]:
             for t in TASKS}
 
 
-def build_datasets(cfg) -> Dict[str, Dict[str, Any]]:
+def build_datasets(cfg, mesh: Optional[pmesh.Mesh] = None
+                   ) -> Dict[str, Dict[str, Any]]:
     """The four task datasets and their loaders (both mains build all four
     whatever ``enabled_tasks`` says, reference main_temporal.py:161-235);
     ``loader_processes > 0`` builds the batches in worker processes, which
-    :func:`~egopack_torch.data.loader.close_loaders` stops."""
+    :func:`~egopack_torch.data.loader.close_loaders` stops. On a mesh with
+    a data axis, the train and validation loaders build this rank's block
+    of every global batch (``egopack_tpu/train/driver.py:73-101``)."""
     out = {}
     dataset_cfgs = {"ar": cfg.dataset_recognition, "oscc": cfg.dataset_oscc,
                     "lta": cfg.dataset_lta, "pnr": cfg.dataset_pnr}
     workers = int(cfg.get("loader_processes", 0))
+    shard = mh.process_shard(mesh) if mesh is not None else None
     for name, dcfg in dataset_cfgs.items():
         train = instantiate(dcfg, split="train")
         val = instantiate(dcfg, split=cfg.validation_split)
@@ -120,10 +148,12 @@ def build_datasets(cfg) -> Dict[str, Dict[str, Any]]:
             "train": train, "val": val,
             "dl_train": build_dataloader(train, cfg.batch_size, True,
                                          cfg.num_workers, True, seed=cfg.seed,
-                                         worker_processes=workers),
+                                         worker_processes=workers,
+                                         process_shard=shard),
             "dl_val": build_dataloader(val, cfg.batch_size, False,
                                        cfg.num_workers, False, seed=cfg.seed,
-                                       worker_processes=workers),
+                                       worker_processes=workers,
+                                       process_shard=shard),
         }
     sizes = {n: d["train"].features_size for n, d in out.items()}
     if len(set(sizes.values())) != 1:
@@ -209,7 +239,12 @@ def make_eval_steps(system: MultiTaskSystem, task_weights,
     return steps
 
 
-def make_run_logger(cfg) -> RunLogger:
+def make_run_logger(cfg, mesh: Optional[pmesh.Mesh] = None):
+    """The run's logger on rank 0; a no-op logger on the other ranks, whose
+    records would repeat rank 0's (``egopack_tpu/train/driver.py:167-176``).
+    """
+    if mesh is not None and mesh.rank != 0:
+        return NullLogger()
     return RunLogger(cfg.output_dir,
                      format_run_name(cfg.wandb_name_pattern,
                                      to_container(cfg)),
@@ -227,8 +262,10 @@ def _run_validation(cfg, system: MultiTaskSystem, dsets, task_weights,
                     force_all: bool = False) -> Dict[str, Dict[str, Any]]:
     """The validation block (reference main_temporal.py:345-404,
     egopack_tpu/train/driver.py:204-250): one meter per enabled task, or
-    per task with ``force_all``; ``banks`` go to every eval step. Returns
-    ``{task: meter.get_logs()}``."""
+    per task with ``force_all``; ``banks`` go to every eval step. On the
+    system's mesh each rank meters its block and the meters are merged over
+    the data axis. Returns ``{task: meter.get_logs()}``."""
+    mesh = system.mesh
     metrics: Dict[str, Dict[str, Any]] = {}
     for name in TASKS:
         if not (force_all or task_weights[name] > 0):
@@ -239,13 +276,16 @@ def _run_validation(cfg, system: MultiTaskSystem, dsets, task_weights,
             log_confusion=bool(cfg.get("log_confusion_matrices", False)))
         step, loader = eval_steps[name], dsets[name]["dl_val"]
         if name == "lta":
+            # the one-process run's samples of this rank's block
             validate_lta(step, banks, loader, meter,
                          system.tasks["lta"].head.generate_from_logits,
-                         generator, system.device)
+                         system.sample_generator(generator), system.device,
+                         mesh)
         elif name == "pnr":
-            validate_pnr(step, banks, loader, meter, system.device)
+            validate_pnr(step, banks, loader, meter, system.device, mesh)
         else:
-            validate(step, banks, loader, meter, name, system.device)
+            validate(step, banks, loader, meter, name, system.device, mesh)
+        mh.merge_meter(meter, mesh)
         logger.info(" ## %s ## ", TITLES[name])
         for line in meter.print_logs():
             logger.info(line)
@@ -263,7 +303,10 @@ def _emit_plots(run_logger: RunLogger, meter, name: str, epoch: int) -> None:
     per-class accuracy tables (reference utils/meters/ego4d.py:134-203) as
     JSON with their heatmaps (``utils/plots.py``; skipped with a warning
     without matplotlib), and the t-SNE embeddings of the features
-    (reference utils/meters/base.py:36-39) as ``features_<task>_ep<n>.npz``."""
+    (reference utils/meters/base.py:36-39) as ``features_<task>_ep<n>.npz``.
+    Nothing on ranks without a run directory."""
+    if isinstance(run_logger, NullLogger):
+        return
     if getattr(meter, "log_confusion", False):
         tables = {which: meter.confusion_tables(which)
                   for which in ("verbs", "nouns")}
@@ -333,7 +376,10 @@ class _Profiler:
 def _emit_histograms(run_logger: RunLogger, hists, epoch: int) -> None:
     """One ``histograms_ep<epoch>.npz`` in the run directory, two arrays a
     parameter: ``<grad_hist|param_hist>/<path>:counts`` (bins,) and
-    ``...:edges`` (bins+1,) (egopack_tpu/train/driver.py:287-303)."""
+    ``...:edges`` (bins+1,) (egopack_tpu/train/driver.py:287-303).
+    Nothing on ranks without a run directory."""
+    if isinstance(run_logger, NullLogger):
+        return
     keys = list(hists)
     arrays = to_host([t for k in keys for t in hists[k]])
     out = {}
@@ -348,7 +394,8 @@ def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
                   opt_state: topt.AdamState,
                   run_gen: torch.Generator) -> int:
     """Restore the newest full-state checkpoint, if checkpoints are on and
-    one exists; returns the first epoch to run."""
+    one exists; returns the first epoch to run. The checkpoint holds whole
+    tensors; each rank keeps its slice of the split ones."""
     if not cfg.checkpoint.enable:
         return 1
     wait_for_saves()  # a background write of this process may be pending
@@ -356,13 +403,19 @@ def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
     if last is None:
         return 1
     state = restore_state(ckpt_dir, last, system.device)
+
+    def mine(name: str, full: torch.Tensor) -> torch.Tensor:
+        dim = system.shards.get(name)
+        return full if dim is None else shard_of(full, system.mesh.model_axis,
+                                                 dim)
+
     with torch.no_grad():
         for n, p in system.params().items():
-            p.copy_(state["params"][n])
-        for mine, saved in ((opt_state.mu, state["mu"]),
+            p.copy_(mine(n, state["params"][n]))
+        for ours, saved in ((opt_state.mu, state["mu"]),
                             (opt_state.nu, state["nu"])):
-            for n in mine:
-                mine[n].copy_(saved[n])
+            for n in ours:
+                ours[n].copy_(mine(n, saved[n]))
     opt_state.count = int(state["count"])
     run_gen.set_state(state["generator"])
     logger.info("Resumed full state from epoch %d", last)
@@ -372,9 +425,17 @@ def _maybe_resume(cfg, ckpt_dir: str, system: MultiTaskSystem,
 def _save_checkpoint(ckpt_dir: str, epoch: int, system: MultiTaskSystem,
                      opt_state: topt.AdamState, run_gen: torch.Generator,
                      async_write: bool) -> None:
+    """The full state, split tensors gathered (every rank calls this), as
+    rank 0 writes it."""
+    def whole(tree):
+        return pmesh.gather_params(tree, system.shards, system.mesh)
+
+    params = whole({n: p.detach() for n, p in system.params().items()})
+    mu, nu = whole(opt_state.mu), whole(opt_state.nu)
+    if system.mesh.rank != 0:
+        return
     save_state(ckpt_dir, epoch, {
-        "params": {n: p.detach() for n, p in system.params().items()},
-        "mu": opt_state.mu, "nu": opt_state.nu, "count": opt_state.count,
+        "params": params, "mu": mu, "nu": nu, "count": opt_state.count,
         "generator": run_gen.get_state(), "epoch": epoch},
         async_write=async_write)
 
@@ -402,7 +463,9 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
     x_dtype = torch.bfloat16 if system.compute_dtype == torch.bfloat16 \
         else None
     copier = DeviceCopier(device, x_dtype)
-    profiler = _Profiler(cfg.get("profile_dir", None), device)
+    # one trace, rank 0's
+    profiler = _Profiler(cfg.get("profile_dir", None)
+                         if system.mesh.rank == 0 else None, device)
     val_metrics: Dict[str, Any] = {}
     stats = []
     extra = () if banks is None else (banks,)
@@ -481,13 +544,29 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
     return val_metrics, stats
 
 
+def _place(system: MultiTaskSystem, mesh: pmesh.Mesh) -> None:
+    """Rank 0's parameters on every rank (the same seeds drew them alike;
+    the broadcast makes sure), then this rank's shards."""
+    pmesh.replicate(system.params().values())
+    pmesh.place_params(system, mesh)
+
+
+def _write_artifact(cfg, system: MultiTaskSystem, name: str,
+                    payload: Dict[str, Any], meta: Dict[str, Any]) -> None:
+    """Rank 0 writes; the payload holds whole tensors."""
+    if system.mesh.rank == 0:
+        save_artifact(cfg.artifact_dir, name, payload, meta=meta)
+        logger.info("Saved artifact %s", name)
+
+
 def train_mtl(cfg) -> Dict[str, Any]:
     """Phase-1 multi-task pretraining (reference main_temporal.py) on the
-    config's ``device``."""
+    config's ``device``, on the ``parallel`` grid of ranks."""
     setup_logging()
     check_supported(cfg)
-    device = config_device(cfg.get("device", "cuda"))
-    run_logger = make_run_logger(cfg)
+    mesh = setup_mesh(cfg, config_device(cfg.get("device", "cuda")))
+    device = mesh.device
+    run_logger = make_run_logger(cfg, mesh)
     run_gen = torch.Generator()
     run_gen.manual_seed(cfg.seed if cfg.seed > 0 else 0)
 
@@ -499,9 +578,10 @@ def train_mtl(cfg) -> Dict[str, Any]:
     # phase-1 checkpoints live apart from phase-2 ones, whose trees differ
     ckpt_dir = osp.join(cfg.checkpoint.dir, f"mtl_{name}")
 
-    dsets = build_datasets(cfg)
+    dsets = build_datasets(cfg, mesh)
     system = build_system(cfg, dsets, device)
     system.init_params(make_generator(draw_seed(run_gen), device))
+    _place(system, mesh)
 
     active = tuple(t for t in TASKS if task_weights[t] > 0)
     # torch grad=None semantics: the backbone and the active heads train
@@ -543,14 +623,12 @@ def train_mtl(cfg) -> Dict[str, Any]:
     result = {"system": system, "optimizer": optimizer,
               "opt_state": opt_state, "dsets": dsets,
               "val_metrics": val_metrics, "run_dir": run_logger.dir,
-              "start_epoch": start_epoch, "epochs": stats}
+              "start_epoch": start_epoch, "epochs": stats, "mesh": mesh}
     if cfg.save_model:
-        payload = interop.to_flax(system.params())
+        payload = interop.to_flax(system.full_params())
         payload["epoch"] = np.asarray(cfg.num_epochs)
-        save_artifact(cfg.artifact_dir, name, payload,
-                      meta={"tasks": list(active),
-                            "num_epochs": cfg.num_epochs})
-        logger.info("Saved artifact %s", name)
+        _write_artifact(cfg, system, name, payload,
+                        {"tasks": list(active), "num_epochs": cfg.num_epochs})
         result["artifact"] = name
     run_logger.close()
     return result
@@ -559,24 +637,29 @@ def train_mtl(cfg) -> Dict[str, Any]:
 def _prototype_banks(cfg, system: MultiTaskSystem, dsets,
                      aux_tasks: Sequence[str]) -> Banks:
     """The aux tasks' prototype banks from one sweep over the AR train set
-    at batch 256, unshuffled, with its padded tail kept
-    (egopack_tpu/train/driver.py:580-597; on one card the data-axis
-    rounding of the batch is 1). The batches are copied to the device a
-    few ahead of the sweep; the sums accumulate in float64 on the host."""
-    loader = build_dataloader(dsets["ar"]["train"], PROTO_BATCH, False,
-                              cfg.num_workers, False, seed=cfg.seed)
+    at batch 256, rounded up to a multiple of the data axis, unshuffled,
+    with its padded tail kept (egopack_tpu/train/driver.py:580-597): each
+    rank sweeps its block of every batch and the sums are summed over the
+    data axis. The batches are copied to the device a few ahead of the
+    sweep; the sums accumulate in float64 on the device."""
+    mesh = system.mesh
+    loader = build_dataloader(dsets["ar"]["train"],
+                              -(-PROTO_BATCH // mesh.data) * mesh.data,
+                              False, cfg.num_workers, False, seed=cfg.seed,
+                              process_shard=mh.process_shard(mesh))
     n_verbs, n_nouns = dsets["ar"]["train"].num_class_labels
     copier = DeviceCopier(system.device)
     step = make_prototype_step(system, tuple(aux_tasks), n_verbs, n_nouns)
     return build_prototypes(step, device_prefetch(iter(loader), copier.put,
                                                   copier.ready),
                             n_verbs, n_nouns, n_tasks=len(aux_tasks),
-                            device=system.device)
+                            device=system.device, data_axis=mesh.data_axis)
 
 
 def train_egopack(cfg) -> Dict[str, Any]:
     """Phase-2 EgoPack novel-task training (reference main_egopack.py;
-    egopack_tpu/train/driver.py:544-723) on the config's ``device``."""
+    egopack_tpu/train/driver.py:544-723) on the config's ``device``, on
+    the ``parallel`` grid of ranks."""
     setup_logging()
     if not cfg.enable_graphone:
         raise SystemExit("Invalid configuration (enable_graphone=False). "
@@ -584,13 +667,14 @@ def train_egopack(cfg) -> Dict[str, Any]:
     check_supported(cfg)
     if not cfg.resume_from:
         raise ValueError("EgoPack phase requires resume_from=<MTL artifact>")
-    device = config_device(cfg.get("device", "cuda"))
-    run_logger = make_run_logger(cfg)
+    mesh = setup_mesh(cfg, config_device(cfg.get("device", "cuda")))
+    device = mesh.device
+    run_logger = make_run_logger(cfg, mesh)
     run_gen = torch.Generator()
     run_gen.manual_seed(cfg.seed if cfg.seed > 0 else 0)
 
     task_weights = task_weights_from_cfg(cfg)
-    dsets = build_datasets(cfg)
+    dsets = build_datasets(cfg, mesh)
     system = build_system(cfg, dsets, device, phase2=True)
     system.init_params(make_generator(draw_seed(run_gen), device))
 
@@ -600,6 +684,9 @@ def train_egopack(cfg) -> Dict[str, Any]:
     loaded.pop("epoch", None)
     merge_flax(system, loaded)
     logger.info("Resumed from %s", cfg.resume_from)
+    # the mesh before the sweep, which splits over its data axis
+    # (egopack_tpu/train/driver.py:573-578)
+    _place(system, mesh)
 
     # the aux task set is the tasks named in the artifact's reference
     # (main_egopack.py:300-301)
@@ -615,11 +702,16 @@ def train_egopack(cfg) -> Dict[str, Any]:
                         features_size=cfg.model.hidden_size,
                         **to_container(cfg.graphone), device=device)
     graphone.reset_parameters(make_generator(draw_seed(run_gen), device))
+    pmesh.replicate(graphone.parameters())
     # freeze=False: the bank values join the parameters and the optimizer;
     # the masks stay as built
     system.attach_graphone(graphone, None if freeze else banks)
     if not freeze:
         logger.warning("GraphONE initialized with trainable prototypes.")
+    # the trained bank values split with the banks, by row over the model
+    # axis (egopack_tpu/train/driver.py:620-625)
+    pmesh.place_params(system, mesh)
+    banks = pmesh.place_banks(banks, mesh)
 
     active = tuple(t for t in TASKS if task_weights[t] > 0)
     # the phase-2 loss graph: the primary heads and GraphONE (and the
@@ -675,25 +767,26 @@ def train_egopack(cfg) -> Dict[str, Any]:
               "graphone": graphone, "aux_tasks": aux_tasks,
               "val_metrics": val_metrics, "run_dir": run_logger.dir,
               "start_epoch": start_epoch, "epochs": stats,
-              "sweep_s": sweep_s}
+              "sweep_s": sweep_s, "mesh": mesh}
     if cfg.save_model:
         # the reference persists graphone.state_dict(), bank embeddings
         # included (main_egopack.py:453-459); the banks (trained ones for
-        # freeze=False) and their masks make the artifact evaluable cold
-        payload = interop.to_flax(system.params())
-        tasks = list(banks)
+        # freeze=False) and their masks make the artifact evaluable cold;
+        # split tensors are gathered whole, so it loads on any grid
+        payload = interop.to_flax(system.full_params())
+        whole = pmesh.gather_banks(banks, mesh)
+        tasks = list(whole)
         payload["graphone_bank_masks"] = dict(zip(
-            tasks, to_host([banks[t].mask for t in tasks])))
+            tasks, to_host([whole[t].mask for t in tasks])))
         if freeze:  # trained banks are parameters, in the payload already
             payload["graphone_banks"] = dict(zip(
-                tasks, to_host([banks[t].values for t in tasks])))
+                tasks, to_host([whole[t].values for t in tasks])))
         payload["epoch"] = np.asarray(cfg.num_epochs)
-        save_artifact(cfg.artifact_dir, name, payload,
-                      meta={"tasks": list(active), "phase": "egopack",
-                            "aux_tasks": list(aux_tasks),
-                            "graphone": to_container(cfg.graphone),
-                            "late_fusion": bool(cfg.late_fusion)})
-        logger.info("Saved artifact %s", name)
+        _write_artifact(cfg, system, name, payload,
+                        {"tasks": list(active), "phase": "egopack",
+                         "aux_tasks": list(aux_tasks),
+                         "graphone": to_container(cfg.graphone),
+                         "late_fusion": bool(cfg.late_fusion)})
         result["artifact"] = name
     run_logger.close()
     return result

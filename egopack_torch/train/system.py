@@ -16,6 +16,17 @@ Parameters live in ``MultiTaskSystem.model``, an ``nn.ModuleDict`` whose
 names follow the flax tree (``temporal_graph``, ``task.recognition``, ...,
 ``graphone``, ``graphone_banks``; see ``interop.py``). The steps update them
 in place.
+
+On a mesh (``parallel/mesh.py:place_params``) each rank holds its block of
+every global batch and its shards of the split parameters. The steps keep
+the global batch's meaning (``egopack_tpu/train/system.py:467-481``): each
+task's masked mean divides this rank's masked sum by the count over the
+whole data axis, so the gradients summed over the axis are those of the
+global loss, whatever share of valid samples each rank holds; the graph
+LayerNorms take the global batch's statistics; dropout masks are drawn at
+the global batch's shape (``ShardedGenerator``); the fused layout is chosen
+by the global node count; and the norms count each replicated leaf once and
+sum the squares of split leaves over the model axis.
 """
 
 from __future__ import annotations
@@ -34,7 +45,10 @@ from ..data.graphs import GraphSpec
 from ..device import DeviceLike, resolve_device
 from ..models.backbone import TemporalGraph
 from ..models.graphone import GraphONE, PrototypeBank
+from ..models.layers import GraphLayerNorm, ShardedGenerator
 from ..ops.losses import bce_with_logits, cross_entropy, masked_mean
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import Mesh, gather_params
 from .optim import Adam, AdamState
 
 TASK_ORDER = ("ar", "lta", "oscc", "pnr")
@@ -83,6 +97,20 @@ def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def _sharded_norm(named: Dict[str, torch.Tensor], shards: Dict[str, int],
+                  mesh: Mesh) -> torch.Tensor:
+    """``_global_norm`` of tensors of which those named in ``shards`` hold
+    this rank's slice of a tensor split over the model axis: their squares
+    are summed over the axis, the replicated ones counted once."""
+    split = [t for n, t in named.items() if n in shards]
+    if not split:
+        return _global_norm(list(named.values()))
+    sq = all_reduce_(sum(torch.sum(torch.square(t.float())) for t in split),
+                     mesh.model_axis)
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for n, t in named.items() if n not in shards) + sq)
+
+
 @functools.lru_cache(maxsize=8)
 def _layer_groups(names: Tuple[str, ...]) -> Dict[str, Tuple[str, ...]]:
     """The subtrees of ``_subtree_norms`` over torch parameter names: the
@@ -105,19 +133,22 @@ def _layer_groups(names: Tuple[str, ...]) -> Dict[str, Tuple[str, ...]]:
 
 
 def _subtree_norms(params: Dict[str, torch.Tensor],
-                   grads: Dict[str, torch.Tensor]) -> Logs:
+                   grads: Dict[str, torch.Tensor],
+                   norm: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+                   ) -> Logs:
     """Per-layer L2 norms of the gradients and the parameters, one scalar
     per subtree of ``_layer_groups``, with JAX's keys
     (``grad_norm/temporal_graph/sage0``, ``param_norm/graphone``;
-    ``egopack_tpu/train/system.py:82-97``). JAX differentiates every leaf,
-    so a subtree outside the trainable set has a gradient norm of 0."""
+    ``egopack_tpu/train/system.py:82-97``), each by ``norm`` over the
+    subtree's named tensors. JAX differentiates every leaf, so a subtree
+    outside the trainable set has a gradient norm of 0."""
     out: Logs = {}
     for key, members in _layer_groups(tuple(params)).items():
-        g = [grads[n] for n in members if n in grads]
-        out[f"grad_norm/{key}"] = (_global_norm(g) if g else
+        g = {n: grads[n] for n in members if n in grads}
+        out[f"grad_norm/{key}"] = (norm(g) if g else
                                    params[members[0]].new_zeros(()))
-        out[f"param_norm/{key}"] = _global_norm(
-            [params[n].detach() for n in members])
+        out[f"param_norm/{key}"] = norm(
+            {n: params[n].detach() for n in members})
     return out
 
 
@@ -238,6 +269,10 @@ class MultiTaskSystem:
                 torch.as_tensor(s.spec.pos, device=self.device))
             for n, s in tasks.items()}
         self._concat_cache: Dict[tuple, _ConcatConsts] = {}
+        # the rank grid, and {name: split dim} of the parameters split
+        # over its model axis (``parallel/mesh.py:place_params``)
+        self.mesh = Mesh(device=self.device)
+        self.shards: Dict[str, int] = {}
 
     def _resolve_layout(self, total_nodes: int) -> str:
         layout = self.fused_layout
@@ -252,6 +287,47 @@ class MultiTaskSystem:
     # ---------------- parameters ----------------
     def params(self) -> Dict[str, nn.Parameter]:
         return dict(self.model.named_parameters())
+
+    def use_mesh(self, mesh: Mesh) -> None:
+        """Wire the modules to ``mesh``: the graph LayerNorms reduce over
+        its data axis, the pooling MLP over its model axis when its layers
+        are split, GraphONE's banks are split over the model axis."""
+        self.mesh = mesh
+        for m in self.model.modules():
+            if isinstance(m, GraphLayerNorm):
+                m.data_axis = mesh.data_axis
+        if "temporal_graph.pooling.fc0.weight" in self.shards:
+            self.backbone.pooling.model_axis = mesh.model_axis
+        if "graphone" in self.model:
+            self.model["graphone"].model_axis = mesh.model_axis
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter at its full shape: split ones gathered over the
+        model axis (a collective on a mesh; every rank calls it)."""
+        return gather_params(self.params(), self.shards, self.mesh)
+
+    def _norm(self, named: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return _sharded_norm(named, self.shards, self.mesh)
+
+    def sample_generator(self, generator: Optional[torch.Generator]):
+        """``generator`` for this rank's block of a batch split over the
+        data axis: the global batch's masks (``ShardedGenerator``)."""
+        if generator is None or self.mesh.data == 1:
+            return generator
+        return ShardedGenerator(generator, self.mesh.data_index,
+                                self.mesh.data)
+
+    def masked_mean(self, values: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+        """``masked_mean`` of the global batch's share on this rank: this
+        rank's masked sum over the masked count of the whole data axis
+        (``egopack_tpu/ops/losses.py:51-56``). Summed over the axis, it is
+        the global batch's masked mean."""
+        if self.mesh.data == 1:
+            return masked_mean(values, mask)
+        m = mask.float()
+        count = all_reduce_(m.sum(), self.mesh.data_axis)
+        return (values.float() * m).sum() / torch.clamp_min(count, 1.0)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator
@@ -400,10 +476,21 @@ class MultiTaskSystem:
             b, n = x.shape[0], x.shape[1]
             xs.append(x.reshape(1, b * n, x.shape[2], x.shape[3]))
             metas.append((name, b, n))
-        h_all = self.backbone.pool(torch.cat(xs, 1), train, generator)[0]
+        pool_gen = generator
+        if isinstance(generator, ShardedGenerator):
+            # this rank's rows of the global concatenation of the tasks'
+            # node sets
+            rows, total = [], 0
+            for _, b, n in metas:
+                rows.append(total + generator.index * b * n
+                            + torch.arange(b * n, device=self.device))
+                total += generator.count * b * n
+            pool_gen = generator.with_rows(torch.cat(rows), total)
+        h_all = self.backbone.pool(torch.cat(xs, 1), train, pool_gen)[0]
         masks = [batches[name]["valid"][:, None].expand(b, n)
                  for name, b, n in metas]
-        layout = self._resolve_layout(sum(b * n for _, b, n in metas))
+        layout = self._resolve_layout(
+            sum(b * n for _, b, n in metas) * self.mesh.data)
         if layout == "concat":
             c = self._concat_static(metas)
             adj_cc = self._concat_adjacency(metas, batches, c)
@@ -432,6 +519,7 @@ class MultiTaskSystem:
         def loss_fn(batches: Dict[str, Batch],
                     generator: Optional[torch.Generator]):
             total, logs = 0.0, {}
+            generator = self.sample_generator(generator)
             fused = self._can_fuse(batches, active)
             if fused:
                 feats = self.fused_backbone_features(batches, active, True,
@@ -450,7 +538,7 @@ class MultiTaskSystem:
                     generator)
                 per_elem = _phase1_task_loss(name, logits, batch["y"])
                 mask = batch["valid"] if per_elem.ndim == 1 else node_mask
-                loss = masked_mean(per_elem, mask)
+                loss = self.masked_mean(per_elem, mask)
                 logs[f"{name}_loss"] = loss
                 total = total + self.tasks[name].weight * loss
             return total, logs
@@ -462,7 +550,9 @@ class MultiTaskSystem:
                          per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
         ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
-        adds ``_subtree_norms`` to every step's logs."""
+        adds ``_subtree_norms`` to every step's logs. On a data axis the
+        gradients and the logged losses are summed over it (each rank's
+        loss is its share of the global one, see ``masked_mean``)."""
 
         def inner_step(opt_state: AdamState, args: tuple,
                        log_norms: bool) -> Logs:
@@ -476,16 +566,37 @@ class MultiTaskSystem:
                                         materialize_grads=True)
             logs = {k: v.detach() for k, v in logs.items()}
             with torch.no_grad():
+                grads = self._sum_over_data(grads)
+                if self.mesh.data > 1:
+                    keys = sorted(logs)
+                    summed = self._sum_over_data([logs[k] for k in keys])
+                    logs = dict(zip(keys, summed))
+                named = dict(zip(names, grads))
                 if log_norms:
-                    logs["grad_norm"] = _global_norm(grads)
-                    logs["param_norm"] = _global_norm(list(params.values()))
+                    logs["grad_norm"] = self._norm(named)
+                    logs["param_norm"] = self._norm(params)
                 if per_layer_norms:
-                    logs.update(_subtree_norms(params,
-                                               dict(zip(names, grads))))
-            optimizer.apply(dict(zip(names, grads)), opt_state, params)
+                    logs.update(_subtree_norms(params, named, self._norm))
+            optimizer.apply(named, opt_state, params)
             return logs
 
         return inner_step
+
+    def _sum_over_data(self, tensors: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """``tensors`` summed over the data axis in one collective (float32
+        tensors, flattened into one buffer); as they are on one data
+        row."""
+        tensors = list(tensors)
+        if self.mesh.data == 1 or not tensors:
+            return tensors
+        flat = all_reduce_(torch.cat([t.reshape(-1).float() for t in tensors]),
+                           self.mesh.data_axis)
+        out, off = [], 0
+        for t in tensors:
+            out.append(flat[off:off + t.numel()].view_as(t).to(t.dtype))
+            off += t.numel()
+        return out
 
     @staticmethod
     def _multi(inner, opt_state: AdamState, arg_list: Sequence[tuple],
@@ -569,9 +680,13 @@ class MultiTaskSystem:
             grads = torch.autograd.grad(total, list(params.values()),
                                         materialize_grads=True)
             with torch.no_grad():
-                return {**_tree_histograms(dict(zip(params, grads)),
-                                           "grad_hist", bins),
-                        **_tree_histograms(params, "param_hist", bins)}
+                # whole tensors: the global gradient, split leaves gathered
+                grads = gather_params(
+                    dict(zip(params, self._sum_over_data(grads))),
+                    self.shards, self.mesh)
+                full = gather_params(params, self.shards, self.mesh)
+                return {**_tree_histograms(grads, "grad_hist", bins),
+                        **_tree_histograms(full, "param_hist", bins)}
 
         return hist_fn
 
@@ -662,11 +777,12 @@ class MultiTaskSystem:
                 generator, aux_features=aux_feats)
             per_elem = _phase2_task_loss(head, logits, batch["y"])
             mask = batch["valid"] if per_elem.ndim == 1 else node_mask
-            return masked_mean(per_elem, mask)
+            return self.masked_mean(per_elem, mask)
 
         def loss_fn(banks: Banks, batches: Dict[str, Batch],
                     generator: Optional[torch.Generator]):
             total, logs = 0.0, {}
+            generator = self.sample_generator(generator)
             for name in active:
                 loss = task_loss(banks, name, batches[name], generator)
                 logs[f"{name}_loss"] = loss

@@ -206,11 +206,15 @@ def test_resumed_run_equals_straight_run(runs):
 
 
 def test_unsupported_settings_raise(runs, monkeypatch):
+    """A grid larger than the world of processes raises, and so does a
+    multi-process run without its rendezvous: nothing carries on alone."""
     base = overrides(runs["root"], runs["tmp"]["port"], "device=cpu",
                      "num_epochs=1", "save_model=False")
-    for extra, match in ((["parallel.data=2"], "Queue 1 item 14"),
-                         (["parallel.multihost=True"], "Queue 1 item 14")):
-        with pytest.raises(NotImplementedError, match=match):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    for extra, match in ((["parallel.data=2"], "number of processes"),
+                         (["parallel.multihost=True"], "env://")):
+        with pytest.raises(ValueError, match=match):
             tmain.main(base + extra)
     # the configs' device=tpu means the card; without one it raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -274,11 +274,15 @@ def test_errors(runs):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ("parallel.data=2", "Queue 1 item 14"),
-    ("parallel.multihost=True", "Queue 1 item 14"),
+    ("parallel.data=2", "number of processes"),
+    ("parallel.multihost=True", "env://"),
 ])
-def test_unsupported_settings_raise(runs, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unsupported_settings_raise(runs, extra, match, monkeypatch):
+    """A grid larger than the world of processes raises, and so does a
+    multi-process run without its rendezvous."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=match):
         tmain.main(phase2(runs["root"], runs["tmp"]["port"], "device=cpu",
                           "num_epochs=1", "save_model=False", extra))
 

@@ -52,9 +52,19 @@ def test_imports_no_jax(imported, module):
     assert imported[module] == [], (module, imported[module])
 
 
+PARALLEL = ["egopack_torch.parallel", "egopack_torch.parallel.collectives",
+            "egopack_torch.parallel.dryrun", "egopack_torch.parallel.launch",
+            "egopack_torch.parallel.mesh", "egopack_torch.parallel.multihost"]
 TOOLS = ["egopack_torch.predict", "egopack_torch.sweep",
          "egopack_torch.aggregate", "egopack_torch.utils.plots",
-         "egopack_torch.ops.criterion"]
+         "egopack_torch.ops.criterion"] + PARALLEL
+
+
+def test_parallel_modules_are_checked():
+    """Every module of ``egopack_torch/parallel`` is among the modules
+    imported above, and each is imported alone below."""
+    found = [m for m in MODULES if m.startswith("egopack_torch.parallel")]
+    assert found == PARALLEL
 
 
 @pytest.fixture(scope="module")
