@@ -742,7 +742,8 @@ def phase_egopack_driver(tmp: str, card: str) -> dict:
             "val_batches": val_batches, "ms_step": ms_step,
             "data_ms": data_ms, "sweep_s": result["sweep_s"],
             "last_val": again["val_metrics"]["oscc"],
-            "records": train_records(result), "val_acc": val_acc}
+            "records": train_records(result), "val_acc": val_acc,
+            "bank_rows": {t: b.values.shape[0] for t, b in banks.items()}}
 
 
 def phase_evaluate(tmp: str, ego: dict) -> tuple:
@@ -1624,7 +1625,13 @@ result = main(sys.argv[1:])
 if torch.cuda.is_available():
     torch.cuda.synchronize()
 stats = result["epochs"]
+params = result["system"].params()
 print(json.dumps({
+    "shards": sorted(result["system"].shards),
+    "shapes": {n: list(params["temporal_graph.pooling." + n].shape)
+               for n in ("fc0.weight", "fc0.bias", "fc1.weight")},
+    "bank_rows": {t: [b.values.shape[0], b.mask.shape[0]]
+                  for t, b in (result.get("banks") or {}).items()},
     "rank": result["mesh"].rank, "mesh": result["mesh"].shape,
     "adam": tfa.fused_adam.launches, "knn": tkt.cosine_knn.launches,
     "steps": sum(s["steps"] for s in stats),
@@ -1680,6 +1687,37 @@ def records_close(ours: dict, ref: dict, epochs, what: str) -> float:
                     f"{what}: epoch {e} {k} {ours[e][k]!r} against {v!r}")
             gap = max(gap, rel)
     return gap
+
+
+POOL = "temporal_graph.pooling."
+TP_LEAVES = ("fc0.weight", "fc0.bias", "fc1.weight")
+
+
+def require_split(reports, full: dict, banks: dict, what: str) -> str:
+    """Each rank of a model-2 run holds half of fc0's rows (weight and
+    bias), half of fc1's columns and, where ``banks`` gives the full row
+    counts, half of every bank's rows (values and mask); returns what was
+    measured."""
+    halves = {"fc0.weight": 0, "fc0.bias": 0, "fc1.weight": 1}
+    for r in reports:
+        require(set(r["shards"]) >= {POOL + n for n in TP_LEAVES},
+                f"{what} rank {r['rank']}: split leaves {r['shards']}")
+        for n, dim in halves.items():
+            want = list(full[POOL + n].shape)
+            want[dim] //= 2
+            require(r["shapes"][n] == want, f"{what} rank {r['rank']}: "
+                    f"{n} {r['shapes'][n]}, {want} expected")
+        require(sorted(r["bank_rows"]) == sorted(banks)
+                and all(r["bank_rows"][t] == [n // 2, n // 2]
+                        for t, n in banks.items()),
+                f"{what} rank {r['rank']}: bank rows {r['bank_rows']} of "
+                f"{banks}")
+    r0 = reports[0]
+    shapes = ", ".join(f"{n} {r0['shapes'][n]} of "
+                       f"{list(full[POOL + n].shape)}" for n in TP_LEAVES)
+    rows = "".join(f"; bank {t} {r0['bank_rows'][t][0]} of {n} rows"
+                   for t, n in sorted(banks.items()))
+    return f"each rank holds {shapes}{rows}"
 
 
 def nccl_refuses_two_ranks() -> tuple:
@@ -1772,6 +1810,12 @@ def phase_multigpu(tmp: str, drv: dict, ego: dict, card: str) -> dict:
         gap = records_close(train_records(r0),
                             drv["records"], range(1, MG_EPOCHS + 1),
                             f"phase 1 {name}")
+        if name == "tp2":
+            log(f"multigpu: phase 1 tp2: "
+                + require_split(reports, drv["state"], {}, "phase 1 tp2"))
+        else:
+            require(all(r["shards"] == [] for r in reports),
+                    f"phase 1 dp2 split leaves {reports[0]['shards']}")
         log(f"multigpu: phase 1 {name} (mesh {r0['mesh']}): {MG_EPOCHS} "
             f"epochs, {r0['steps']} steps a rank in {r0['wall_s']:.1f} s; "
             f"fused_adam launches {[r['adam'] for r in reports]} by rank; "
@@ -1795,6 +1839,9 @@ def phase_multigpu(tmp: str, drv: dict, ego: dict, card: str) -> dict:
         require(r["adam"] == r["steps"] > 0
                 and r["knn"] == r["steps"] + r["val_batches"] * MG_EPOCHS,
                 f"phase 2 rank {r['rank']}: {r}")
+    split = require_split(reports, drv["state"], ego["bank_rows"],
+                          "phase 2 tp2")
+    log(f"multigpu: phase 2 tp2: {split}")
     recs = train_records({"run_dir": r0["run_dir"]})
     gap = records_close(recs, ego["records"], range(1, MG_EPOCHS + 1),
                         "phase 2 tp2")
@@ -1824,7 +1871,9 @@ def phase_multigpu(tmp: str, drv: dict, ego: dict, card: str) -> dict:
         f"accuracy {cold['accuracy']!r}, loss {cold['loss']!r}; "
         f"{r0['ms_step']!r} ms per step in epoch {MG_EPOCHS} on {card}")
     out["world1"] = {"adam": adam_world1, "steps": steps, "s": world1_s}
-    out["ego_tp2"] = {"adam": [r["adam"] for r in reports],
+    out["ego_tp2"] = {"bank_rows": reports[0]["bank_rows"]["ar"][0],
+                      "bank_rows_full": ego["bank_rows"]["ar"],
+                      "adam": [r["adam"] for r in reports],
                       "knn": [r["knn"] for r in reports],
                       "steps": r0["steps"], "ms_step": r0["ms_step"],
                       "gap": gap, "wall_s": r0["wall_s"]}
@@ -1935,7 +1984,8 @@ def run(dev, card: str):
                f"{mg['dp2']['steps']} steps with data 2, {mg['tp2']['adam']} "
                f"with model 2, {mg['ego_tp2']['adam']} in phase 2 with "
                f"model 2, where cosine_knn ran {mg['ego_tp2']['knn']} times "
-               f"by rank on half the bank rows)")
+               f"by rank on {mg['ego_tp2']['bank_rows']} of "
+               f"{mg['ego_tp2']['bank_rows_full']} bank rows a rank)")
     return kernels, summary
 
 

@@ -238,35 +238,20 @@ class GraphLayerNorm(LayerNorm):
         ``x (1, M, H)`` of several tasks' node sets; each task gets its own
         whole-tensor masked statistics through two small ``(T, M)``
         products."""
-        dim = x.shape[-1]
         x32 = x.float()
-        if self.data_axis.size > 1:
-            mean, var = self._global_moments(x32, node_mask, task_onehot)
-        elif task_onehot is not None:
-            m = node_mask.float()                                  # (M,)
-            cnt = torch.clamp_min(task_onehot @ m * dim, 1.0)      # (T,)
-            row_sum = (x32[0] * m[:, None]).sum(-1)                # (M,)
-            mean_t = (task_onehot @ row_sum) / cnt                 # (T,)
-            mean = (task_onehot.t() @ mean_t)[None, :, None]       # (1, M, 1)
-            row_var = (((x32 - mean) ** 2)[0] * m[:, None]).sum(-1)
-            var_t = (task_onehot @ row_var) / cnt
-            var = (task_onehot.t() @ var_t)[None, :, None]
-        elif node_mask is None:
+        if node_mask is None and self.data_axis.size == 1:
             mean = x32.mean()
             var = ((x32 - mean) ** 2).mean()
         else:
-            m = node_mask.float()[..., None]                       # (B, N, 1)
-            count = torch.clamp_min(m.sum() * dim, 1.0)
-            mean = (x32 * m).sum() / count
-            var = (((x32 - mean) ** 2) * m).sum() / count
+            mean, var = self._moments(x32, node_mask, task_onehot)
         y = (x32 - mean) / (torch.sqrt(var) + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
-    def _global_moments(self, x32: torch.Tensor,
-                        node_mask: Optional[torch.Tensor],
-                        task_onehot: Optional[torch.Tensor]):
-        """Mean and variance over the global batch: each sum is this rank's
-        masked sum, summed over the data axis with its count."""
+    def _moments(self, x32: torch.Tensor, node_mask: Optional[torch.Tensor],
+                 task_onehot: Optional[torch.Tensor]):
+        """Masked mean and variance over the global batch: each sum is this
+        rank's masked sum, summed over the data axis with its count (the
+        identity on a one-rank axis)."""
         axis, dim = self.data_axis, x32.shape[-1]
         if task_onehot is not None:
             m = node_mask.float()                                  # (M,)

@@ -99,16 +99,9 @@ class TRNPooling(nn.Module):
         if self.encoding is not None:
             x = x + self.encoding_mlp(self.encoding_table())
         h = x.reshape(b, n, s * d)
-        if self.model_axis.size > 1:
-            ax = self.model_axis
-            h = gather_from(self.fc0(copy_to(h, ax)), ax)
-            h = dropout(torch.relu(self.ln0(h)), self.dropout, train,
-                        generator)
-            h = self.fc1(scatter_to(h, ax), reduce_axis=ax)
-            h = dropout(torch.relu(self.ln1(h)), self.dropout, train,
-                        generator)
-            return self.fc_out(h)
-        for fc, ln in ((self.fc0, self.ln0), (self.fc1, self.ln1)):
-            h = torch.relu(ln(fc(h)))
-            h = dropout(h, self.dropout, train, generator)
+        ax = self.model_axis
+        h = gather_from(self.fc0(copy_to(h, ax)), ax)
+        h = dropout(torch.relu(self.ln0(h)), self.dropout, train, generator)
+        h = self.fc1(scatter_to(h, ax), reduce_axis=ax)
+        h = dropout(torch.relu(self.ln1(h)), self.dropout, train, generator)
         return self.fc_out(h)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import SINGLE, Axis, all_reduce_
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -1,
@@ -52,8 +54,15 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                axis: Axis = SINGLE) -> torch.Tensor:
     """Mean over elements where mask is True. It excludes PADDED samples,
-    never ignore-labelled nodes: those stay in the denominator."""
+    never ignore-labelled nodes: those stay in the denominator.
+
+    With ``axis`` (the data axis of a batch split over ranks) the count is
+    that of the whole axis (``egopack_tpu/ops/losses.py:51-56``): this
+    rank's share of the global batch's mean, which summed over the axis is
+    that mean."""
     m = mask.float()
-    return (values.float() * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    count = all_reduce_(m.sum(), axis)
+    return (values.float() * m).sum() / torch.clamp_min(count, 1.0)

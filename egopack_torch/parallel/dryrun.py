@@ -3,8 +3,9 @@ counterpart of ``__graft_entry__.dryrun_multichip``)::
 
     python -m egopack_torch.parallel.dryrun --nproc 4 [--device cpu]
 
-It starts N ranks itself (gloo on the CPU; ``--device cuda`` puts them on
-the cards, NCCL unless ``EGOPACK_DIST_BACKEND`` says otherwise), on a
+It starts N ranks itself, on the cards by default (NCCL unless
+``EGOPACK_DIST_BACKEND`` says otherwise; rank r on card r mod the number
+of cards), or on the CPU with ``--device cpu`` (gloo), on a
 ``(N/2, 2)`` grid (``(N, 1)`` for odd N), and runs one step of each part
 at a tiny size: the phase-1 multi-task train step (data parallelism and
 the TRN pooling MLP split over the model axis), a phase-2 EgoPack step
@@ -40,7 +41,7 @@ def rank_main(device_name: str) -> Dict[str, float]:
     import torch.distributed as dist
 
     from .. import entry
-    from ..device import make_generator
+    from ..device import make_generator, resolve_device
     from ..eval.validate import _batch_loss
     from ..models.graphone import GraphONE
     from ..train import optim as topt
@@ -48,7 +49,7 @@ def rank_main(device_name: str) -> Dict[str, float]:
     from . import mesh as pmesh
     from . import multihost as mh
 
-    device = torch.device(device_name)
+    device = resolve_device(device_name)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         device = mh.initialize(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -124,7 +125,8 @@ def compare(ranks: List[dict], single: dict) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nproc", type=int, default=4)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--rank", action="store_true",
                     help="run as one rank of a launched world")

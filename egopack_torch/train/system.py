@@ -317,18 +317,6 @@ class MultiTaskSystem:
         return ShardedGenerator(generator, self.mesh.data_index,
                                 self.mesh.data)
 
-    def masked_mean(self, values: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
-        """``masked_mean`` of the global batch's share on this rank: this
-        rank's masked sum over the masked count of the whole data axis
-        (``egopack_tpu/ops/losses.py:51-56``). Summed over the axis, it is
-        the global batch's masked mean."""
-        if self.mesh.data == 1:
-            return masked_mean(values, mask)
-        m = mask.float()
-        count = all_reduce_(m.sum(), self.mesh.data_axis)
-        return (values.float() * m).sum() / torch.clamp_min(count, 1.0)
-
     @torch.no_grad()
     def init_params(self, generator: torch.Generator
                     ) -> Dict[str, nn.Parameter]:
@@ -538,7 +526,7 @@ class MultiTaskSystem:
                     generator)
                 per_elem = _phase1_task_loss(name, logits, batch["y"])
                 mask = batch["valid"] if per_elem.ndim == 1 else node_mask
-                loss = self.masked_mean(per_elem, mask)
+                loss = masked_mean(per_elem, mask, self.mesh.data_axis)
                 logs[f"{name}_loss"] = loss
                 total = total + self.tasks[name].weight * loss
             return total, logs
@@ -552,7 +540,8 @@ class MultiTaskSystem:
         ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
         adds ``_subtree_norms`` to every step's logs. On a data axis the
         gradients and the logged losses are summed over it (each rank's
-        loss is its share of the global one, see ``masked_mean``)."""
+        loss is its share of the global one, see
+        ``ops.losses.masked_mean``)."""
 
         def inner_step(opt_state: AdamState, args: tuple,
                        log_norms: bool) -> Logs:
@@ -567,10 +556,9 @@ class MultiTaskSystem:
             logs = {k: v.detach() for k, v in logs.items()}
             with torch.no_grad():
                 grads = self._sum_over_data(grads)
-                if self.mesh.data > 1:
-                    keys = sorted(logs)
-                    summed = self._sum_over_data([logs[k] for k in keys])
-                    logs = dict(zip(keys, summed))
+                keys = sorted(logs)
+                logs = dict(zip(keys, self._sum_over_data(
+                    [logs[k] for k in keys])))
                 named = dict(zip(names, grads))
                 if log_norms:
                     logs["grad_norm"] = self._norm(named)
@@ -777,7 +765,7 @@ class MultiTaskSystem:
                 generator, aux_features=aux_feats)
             per_elem = _phase2_task_loss(head, logits, batch["y"])
             mask = batch["valid"] if per_elem.ndim == 1 else node_mask
-            return self.masked_mean(per_elem, mask)
+            return masked_mean(per_elem, mask, self.mesh.data_axis)
 
         def loss_fn(banks: Banks, batches: Dict[str, Batch],
                     generator: Optional[torch.Generator]):

@@ -385,11 +385,12 @@ def test_cold_eval_on_mesh_matches_single_device(drivers):
 
 @pytest.mark.parametrize("nproc", [2, 4])
 def test_dryrun(nproc):
-    """``python -m egopack_torch.parallel.dryrun --nproc N``: every rank's
-    three steps report the one-process losses."""
+    """``python -m egopack_torch.parallel.dryrun --nproc N --device cpu``:
+    every rank's three steps report the one-process losses."""
     proc = subprocess.run([sys.executable, "-m",
                            "egopack_torch.parallel.dryrun", "--nproc",
-                           str(nproc), "--timeout", str(WORLD_S)],
+                           str(nproc), "--device", "cpu", "--timeout",
+                           str(WORLD_S)],
                           cwd=REPO, env=_env(), capture_output=True,
                           text=True, timeout=2 * WORLD_S + 60)
     assert proc.returncode == 0, proc.stderr[-3000:]
