@@ -1,0 +1,417 @@
+"""Plain PyTorch reference of the EgoPack training steps that the benchmark
+times: the phase-1 multi-task step (AR, LTA, PNR) and the phase-2 novel-OSCC
+EgoPack step, each with its losses, backward pass and Adam update.
+
+It follows the published model (sapeirone/EgoPack: ``models/graph.py``,
+``models/temporal_pooling/trn_pooling.py``, ``models/tasks/*.py``,
+``models/graphONE.py``, ``main_temporal.py``, ``main_egopack.py``) in the
+most direct form: each task's graph on its own, mean aggregation as a
+product with the row-normalised adjacency, the cosine k-NN by a full
+distance matrix and a stable sort, and ``torch.optim.Adam`` (coupled L2
+weight decay). It imports nothing but ``torch`` and ``numpy``.
+
+Parameters are a ``{name: tensor}`` dict under the names of
+:func:`benchmark.reference.params.param_spec`. Dropout masks are U[0, 1)
+draws from the generator the caller hands over, at the shapes and in the
+order the published modules apply dropout: phase 1, the TRN pooling's two
+dropouts over every task's nodes at once (``(1, rows, hidden)`` each, the
+tasks in the config's order); phase 2, the pooling's two over the OSCC
+nodes, then the OSCC classifier's and each aux classifier's over the pooled
+features. A kept entry is scaled by ``1 / keep``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+Batch = Dict[str, torch.Tensor]
+
+
+# ---------------- layers ----------------
+
+def _dropout(x: torch.Tensor, rate: float,
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+    if rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return torch.where(u < keep, x / keep, 0.0)
+
+
+def _linear(P: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, P[f"{name}.weight"], P.get(f"{name}.bias"))
+
+
+def _layer_norm(P: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x, (x.shape[-1],), P[f"{name}.weight"],
+                        P[f"{name}.bias"], 1e-5)
+
+
+def _graph_layer_norm(P: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """PyG ``LayerNorm(mode='graph')`` without a batch vector: one mean and
+    one (biased) std over the whole node tensor, eps added to the std."""
+    mean = x.mean()
+    std = ((x - mean) ** 2).mean().sqrt()
+    return (x - mean) / (std + 1e-5) * P[f"{name}.weight"] + P[f"{name}.bias"]
+
+
+def positional_encoding(pos: torch.Tensor, channels: int) -> torch.Tensor:
+    """PyG ``PositionalEncoding`` (base frequency 1e-4)."""
+    half = channels // 2
+    freqs = 1e-4 ** torch.linspace(0.0, 1.0, half, device=pos.device)
+    ang = pos.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+# ---------------- graphs ----------------
+
+def chain_adjacency(n: int, radius: float) -> np.ndarray:
+    """``radius_graph`` over positions 0..n-1 without self loops:
+    ``A[t, s]`` is True where node s sends to node t."""
+    pos = np.arange(n)
+    d = np.abs(pos[:, None] - pos[None, :])
+    return (d <= radius) & (d > 0)
+
+
+def lta_adjacency(y_verb: np.ndarray, n: int, radius: float) -> np.ndarray:
+    """Per-sample LTA graph (``lta_temp_connectivity.py``): the chain plus
+    edges from the last ``floor(radius)`` input clips to every forecast
+    clip, where inputs are the ``-1`` labels and forecasts are counted by
+    ``verb > 0``. Returns ``(B, n, n)``."""
+    out = np.repeat(chain_adjacency(n, radius)[None], len(y_verb), 0)
+    for b, verbs in enumerate(y_verb):
+        ni, nf = int((verbs == -1).sum()), int((verbs > 0).sum())
+        lo = max(math.ceil(ni - radius), 0)
+        out[b, ni:min(ni + nf, n), lo:ni] = True
+    return out
+
+
+def task_graph(cfg: dict, task: str, y: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(adjacency (B, N, N) float, positions (N,)) of one task's batch."""
+    n = cfg["nodes"][task]
+    radius = cfg["graph_k"] + 0.5
+    if task == "lta":
+        adj = lta_adjacency(y[..., 0].cpu().numpy(), n, radius)
+    else:
+        adj = np.repeat(chain_adjacency(n, radius)[None], y.shape[0], 0)
+    pos = np.arange(n, dtype=np.float32)
+    if task == "ar":
+        pos = pos - n // 2
+    dev = y.device
+    return (torch.as_tensor(adj, device=dev).float(),
+            torch.as_tensor(pos, device=dev))
+
+
+def expand_nodes(cfg: dict, task: str, x: torch.Tensor) -> torch.Tensor:
+    """The loader's compact layouts to ``(B, N, S, D)``: PNR ships one
+    frame a node (repeated over the segments), LTA its input clips (the
+    forecast nodes are their mean)."""
+    s, n = cfg["num_segments"], cfg["nodes"][task]
+    if x.ndim == 3:
+        x = x[:, :, None, :].expand(-1, -1, s, -1)
+    if x.shape[1] != n:
+        fill = x.mean(1, keepdim=True).expand(-1, n - x.shape[1], -1, -1)
+        x = torch.cat([x, fill], 1)
+    return x
+
+
+# ---------------- backbone ----------------
+
+def trn_pooling(P: Params, cfg: dict, x: torch.Tensor,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Segments to node (``trn_pooling.py``): (..., S, D) -> (..., H)."""
+    p = "temporal_graph.pooling"
+    rate = cfg["tp_dropout"] if gen is not None else 0.0
+    h = x.reshape(*x.shape[:-2], -1)
+    h = _dropout(torch.relu(_layer_norm(P, f"{p}.ln0", _linear(P, f"{p}.fc0",
+                                                               h))), rate, gen)
+    h = _dropout(torch.relu(_layer_norm(P, f"{p}.ln1", _linear(P, f"{p}.fc1",
+                                                               h))), rate, gen)
+    return _linear(P, f"{p}.fc_out", h)
+
+
+def sage(P: Params, name: str, x: torch.Tensor,
+         adj: torch.Tensor) -> torch.Tensor:
+    """``SAGEConv(project=True)``, mean aggregation over in-neighbours."""
+    msg = torch.relu(_linear(P, f"{name}.lin_project", x))
+    deg = adj.sum(-1, keepdim=True).clamp_min(1.0)
+    agg = (adj @ msg) / deg
+    return _linear(P, f"{name}.lin_l", agg) + _linear(P, f"{name}.lin_r", x)
+
+
+def reason(P: Params, cfg: dict, h: torch.Tensor, adj: torch.Tensor,
+           pos: torch.Tensor) -> torch.Tensor:
+    """``Graph``: ``h + out_lin(net(h + PE(pos)))``, net = depth x
+    [SAGE -> graph LayerNorm -> LeakyReLU(0.2)]."""
+    z = h + positional_encoding(pos, h.shape[-1])[None]
+    for i in range(cfg["depth"]):
+        z = sage(P, f"temporal_graph.sage{i}", z, adj)
+        z = F.leaky_relu(_graph_layer_norm(P, f"temporal_graph.gn{i}", z),
+                         0.2)
+    return h + _linear(P, "temporal_graph.out_lin", z)
+
+
+def project(P: Params, head: str, x: torch.Tensor) -> torch.Tensor:
+    """A task's projection MLP: Linear -> LayerNorm -> ReLU -> Linear."""
+    h = torch.relu(_layer_norm(P, f"task.{head}.proj_ln",
+                               _linear(P, f"task.{head}.proj_fc0", x)))
+    return _linear(P, f"task.{head}.proj_fc1", h)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  smoothing: float = 0.0) -> torch.Tensor:
+    """Per element, label -1 ignored (it reads 0 and stays in the mean)."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    out = F.cross_entropy(flat, labels.reshape(-1).long(), ignore_index=-1,
+                          reduction="none", label_smoothing=smoothing)
+    return out.reshape(labels.shape)
+
+
+HEADS = {"ar": "recognition", "lta": "lta", "pnr": "pnr", "oscc": "oscc"}
+
+
+# ---------------- phase 1 ----------------
+
+def phase1_losses(P: Params, cfg: dict, batches: Dict[str, Batch],
+                  gen: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+    """Each task's mean loss (``main_temporal.py``: AR and LTA the sum of
+    the verb and noun cross entropies per node, PNR the binary cross
+    entropy per node, each averaged over every node of the batch)."""
+    tasks = cfg["tasks"]
+    xs = [expand_nodes(cfg, t, batches[t]["x"]) for t in tasks]
+    sizes = [x.shape[:2] for x in xs]
+    # the pooling MLP is per node: every task's nodes in one pass, so the
+    # dropout masks cover them all at once
+    rows = torch.cat([x.reshape(-1, *x.shape[2:]) for x in xs])
+    pooled = trn_pooling(P, cfg, rows[None], gen)[0]
+    out, off = {}, 0
+    for t, (b, n) in zip(tasks, sizes):
+        h = pooled[off:off + b * n].reshape(b, n, -1)
+        off += b * n
+        y = batches[t]["y"]
+        adj, pos = task_graph(cfg, t, y)
+        feat = project(P, HEADS[t], reason(P, cfg, h, adj, pos))
+        head = f"task.{HEADS[t]}"
+        if t in ("ar", "lta"):
+            per = sum(cross_entropy(_linear(P, f"{head}.cls{i}.TLinear_0",
+                                            feat), y[..., i])
+                      for i in range(2))
+        else:  # pnr
+            logit = _linear(P, f"{head}.cls.TLinear_0", feat)[..., 0]
+            per = F.binary_cross_entropy_with_logits(logit, y.float(),
+                                                     reduction="none")
+        out[t] = per.mean()
+    return out
+
+
+# ---------------- phase 2 ----------------
+
+def cosine_topk(features: torch.Tensor, bank: torch.Tensor, mask: torch.Tensor,
+                k: int, dtype: torch.dtype = torch.float64
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest valid bank rows by cosine distance ``1 - f̂·b̂``, ordered
+    by (distance, index): ``(indices (M, k), distances (M, k))``; also
+    returns the whole distance matrix as a third value."""
+    f = F.normalize(features.to(dtype), dim=-1)
+    b = F.normalize(bank.to(dtype), dim=-1)
+    d = 1.0 - f @ b.t()
+    d = torch.where(mask[None, :], d, torch.inf)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    return idx[:, :k], dist[:, :k], d
+
+
+def graphone(P: Params, cfg: dict, feats: Dict[str, torch.Tensor],
+             banks: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+             neighbours: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``GraphONE`` (``graphONE.py``): each aux task's features (M, F)
+    meet its k nearest prototypes; ``depth`` stages of SAGE with max
+    aggregation over ``max(k prototypes, the node itself)``, LayerNorm,
+    ReLU and a projection, with a residual. The k-NN edges come from the
+    original features and stay fixed over the stages."""
+    g = cfg["graphone"]
+    out = {}
+    for ti, t in enumerate(cfg["aux_tasks"]):
+        bank = banks[t][0]
+        nb_max = bank[neighbours[t].long()].amax(1)          # (M, F)
+        cur = feats[t]
+        for d in range(g["depth"]):
+            agg = torch.maximum(nb_max, cur)
+            h = agg @ P["graphone.w_l"][d, ti] + cur @ P["graphone.w_r"][d, ti]
+            h = F.layer_norm(h, (h.shape[-1],), P["graphone.ln_scale"][d, ti],
+                             P["graphone.ln_bias"][d, ti], 1e-5)
+            o = torch.relu(h) @ P["graphone.w_proj"][d, ti] \
+                + P["graphone.b_proj"][d, ti]
+            cur = o + cur if g["residual"] else o
+        out[t] = cur
+    return out
+
+
+def phase2_losses(P: Params, cfg: dict, batches: Dict[str, Batch],
+                  gen: Optional[torch.Generator],
+                  banks: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                  knn: "KnnJudge") -> Dict[str, torch.Tensor]:
+    """The novel-OSCC loss (``main_egopack.py``): the backbone in train
+    mode (``temporal_graph_train_mode``), the OSCC projection, and with
+    ``late_fusion`` the aux heads' projections of the same features
+    (detached) through GraphONE: the mean of the OSCC classifier's logits
+    and each aux classifier's on its interacted features, each max-pooled
+    over the nodes (without it, the OSCC classifier's alone); cross entropy
+    with label smoothing 0.1, the published constant."""
+    batch = batches["oscc"]
+    x = expand_nodes(cfg, "oscc", batch["x"])
+    h = trn_pooling(P, cfg, x, gen if cfg["temporal_graph_train_mode"]
+                    else None)
+    adj, pos = task_graph(cfg, "oscc", batch["y"])
+    feat = reason(P, cfg, h, adj, pos)
+    b, n = feat.shape[:2]
+    tfeat = project(P, "oscc", feat)
+    rate = cfg["task_head_dropout"]
+    logits = [_linear(P, "task.oscc.cls.TLinear_0",
+                      _dropout(tfeat.amax(1), rate, gen))]
+    if not cfg["late_fusion"]:
+        return {"oscc": cross_entropy(logits[0], batch["y"],
+                                      smoothing=0.1).mean()}
+    flat = feat.reshape(b * n, -1).detach()
+    with torch.no_grad():
+        secondary = {t: project(P, HEADS[t], flat) for t in cfg["aux_tasks"]}
+    neighbours = knn.neighbours(secondary, banks)
+    inter = graphone(P, cfg, secondary, banks, neighbours)
+    for t in cfg["aux_tasks"]:
+        pooled = inter[t].reshape(b, n, -1).amax(1)
+        logits.append(_linear(P, f"task.oscc.aux_{t}_cls.TLinear_0",
+                              _dropout(pooled, rate, gen)))
+    fused = torch.stack(logits).mean(0)
+    return {"oscc": cross_entropy(fused, batch["y"], smoothing=0.1).mean()}
+
+
+def _valid_lists(idx: torch.Tensor, shape: torch.Size,
+                 mask: torch.Tensor) -> bool:
+    """Each row of ``idx`` names ``k`` distinct valid rows of the bank."""
+    if idx.shape != shape:  # not the rows asked about
+        return False
+    if bool(((idx < 0) | (idx >= mask.shape[0])).any()):
+        return False
+    if not bool(mask[idx].all()):
+        return False
+    ordered = idx.sort(dim=-1).values
+    return not bool((ordered[:, 1:] == ordered[:, :-1]).any())
+
+
+class KnnJudge:
+    """The k-NN stage of the reference, and its check of the program's.
+
+    Without a program reading (``seen`` empty) it returns its own k
+    nearest. With the program's ``(indices, distances)`` of a call it
+    judges them against its own distance matrix and continues with the
+    program's neighbours, so that a tie the two sides break apart within
+    rounding does not spread into the numbers compared after it:
+
+    - ``slack``: the worst, over rows and ranks j, of how far the program's
+      j-th neighbour lies from the true j-th, either way, by this
+      reference's distances (0 when the program's list is exact,
+      rounding-sized at a near-tie, and large for a wrong or misplaced
+      neighbour); a list whose indices repeat, leave the bank or name a
+      masked row reads ``inf``, as does one of the wrong shape;
+    - ``dist_gap``: the worst gap between a distance the program reported
+      and this reference's distance of the same row.
+
+    ``produced`` keeps its own lists of each call, stacked over the tasks
+    as the program returns them."""
+
+    def __init__(self, k: int, dtype: torch.dtype = torch.float64,
+                 seen: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None):
+        self.k, self.dtype = k, dtype
+        self.seen = list(seen or [])
+        self.calls = 0
+        self.produced: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.slack = 0.0
+        self.dist_gap = 0.0
+
+    def neighbours(self, secondary: Dict[str, torch.Tensor],
+                   banks) -> Dict[str, torch.Tensor]:
+        call = self.calls
+        self.calls += 1
+        out, made = {}, []
+        for ti, (t, f) in enumerate(secondary.items()):
+            bank, mask = banks[t]
+            idx, dist, d = cosine_topk(f, bank, mask, self.k, self.dtype)
+            made.append((idx, dist))
+            if call < len(self.seen):
+                p_idx = self.seen[call][0][ti].to(d.device).long()
+                p_dist = self.seen[call][1][ti].to(d.device, d.dtype)
+                if not _valid_lists(p_idx, idx.shape, mask):
+                    self.slack = self.dist_gap = math.inf
+                    out[t] = idx
+                    continue
+                mine = torch.gather(d, 1, p_idx)
+                self.slack = max(self.slack,
+                                 float((mine - dist).abs().max()))
+                self.dist_gap = max(self.dist_gap,
+                                    float((p_dist - mine).abs().max()))
+                idx = p_idx
+            out[t] = idx
+        self.produced.append((torch.stack([i for i, _ in made]).cpu(),
+                              torch.stack([d for _, d in made]).cpu()))
+        return out
+
+
+# ---------------- a training step ----------------
+
+class ReferenceRun:
+    """Steps of the reference from the initial parameters: records each
+    step's total loss, the first step's gradient as Adam receives it
+    (coupled weight decay added: its tensors and each leaf's norm) and the
+    plain gradient's norm, per trainable leaf, and the change of each
+    trainable leaf over the steps taken."""
+
+    def __init__(self, cfg: dict, params: Params, trainable: Sequence[str],
+                 banks=None, knn: Optional[KnnJudge] = None):
+        self.cfg = cfg
+        self.P = {n: p.detach().clone() for n, p in params.items()}
+        self.names = list(trainable)
+        self.start = {n: self.P[n].clone() for n in self.names}
+        for n in self.names:
+            self.P[n].requires_grad_(True)
+        self.opt = torch.optim.Adam([self.P[n] for n in self.names],
+                                    lr=cfg["lr"], betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=cfg["weight_decay"],
+                                    foreach=False, fused=False)
+        self.banks = banks
+        self.knn = knn
+        self.losses: List[float] = []
+        self.first_grad: Dict[str, float] = {}
+        self.first_plain_grad: Dict[str, float] = {}
+        self.first_grad_tensors: Params = {}
+
+    def step(self, batches: Dict[str, Batch],
+             gen: Optional[torch.Generator]) -> None:
+        if self.cfg["phase"] == 1:
+            parts = phase1_losses(self.P, self.cfg, batches, gen)
+        else:
+            parts = phase2_losses(self.P, self.cfg, batches, gen, self.banks,
+                                  self.knn)
+        total = sum(parts.values())
+        grads = torch.autograd.grad(total, [self.P[n] for n in self.names],
+                                    allow_unused=True, materialize_grads=True)
+        if not self.losses:
+            wd = self.cfg["weight_decay"]
+            for n, g in zip(self.names, grads):
+                u = g.detach() + wd * self.P[n].detach()
+                self.first_plain_grad[n] = float(g.double().norm())
+                self.first_grad[n] = float(u.double().norm())
+                self.first_grad_tensors[n] = u
+        for n, g in zip(self.names, grads):
+            self.P[n].grad = g
+        self.opt.step()
+        self.losses.append(float(total.detach()))
+
+    def change(self) -> Dict[str, float]:
+        return {n: float((self.P[n].detach() - self.start[n]).double().norm())
+                for n in self.names}
