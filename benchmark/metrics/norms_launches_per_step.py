@@ -1,0 +1,12 @@
+"""Launch calls a step inside the span ``egopack.norms`` of the train step:
+the global gradient and parameter norms logged every step (step layer).
+CUDA runtime and driver calls that queue kernels, copies or fills,
+counted where their host interval lies inside the span, over the
+stretches that recorded the host's operations, over their steps
+(``harness/spans.py``)."""
+
+from benchmark.harness.spans import launches_per_step
+
+
+def read(ctx):
+    return launches_per_step(ctx, "egopack.norms")

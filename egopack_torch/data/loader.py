@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..io import native
+from ..tracing import span
 from .base import BaseDataset
 
 _ARRAY_KEYS_PASSTHROUGH = ("uid", "clip_uid", "last_idx")
@@ -477,13 +478,14 @@ class DeviceCopier:
         return t
 
     def put(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        host = {k: self._tensor(k, v) for k, v in batch.items()
-                if k in DEVICE_KEYS}
-        if self.stream is None:
-            return {k: t.to(self.device) for k, t in host.items()}
-        with torch.cuda.stream(self.stream):
-            return {k: t.pin_memory().to(self.device, non_blocking=True)
-                    for k, t in host.items()}
+        with span("egopack.h2d"):
+            host = {k: self._tensor(k, v) for k, v in batch.items()
+                    if k in DEVICE_KEYS}
+            if self.stream is None:
+                return {k: t.to(self.device) for k, t in host.items()}
+            with torch.cuda.stream(self.stream):
+                return {k: t.pin_memory().to(self.device, non_blocking=True)
+                        for k, t in host.items()}
 
     def ready(self, tree):
         """``tree`` (a batch dict, or a dict of them) for use on the

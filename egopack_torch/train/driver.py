@@ -41,7 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import interop
+from .. import interop, tracing
 from ..config import instantiate, to_container
 from ..data.loader import (DeviceCopier, MultiLoader, build_dataloader,
                            close_loaders, device_prefetch)
@@ -77,6 +77,9 @@ PHASE2_AUX = {
 }
 # the prototype sweep's batch (egopack_tpu/train/driver.py:580-589)
 PROTO_BATCH = 256
+# the train step's spans (``MultiTaskSystem._make_inner_step``) whose median
+# host ms each epoch reports
+PHASES = ("step", "forward", "backward", "norms", "optimizer")
 
 
 def config_device(name: Any) -> torch.device:
@@ -474,6 +477,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
         return {t: copier.put(b) for t, b in zip(TASKS, tup) if t in active}
 
     for epoch in range(start_epoch, cfg.num_epochs + 1):
+        tracing.reset()
         t0 = time.perf_counter()
         step_seed = draw_seed(run_gen)
         generator = make_generator(step_seed, device)
@@ -490,9 +494,9 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
         first_batches = None  # kept for the histograms only
         groups = device_prefetch(iter(ml), put, copier.ready)
         while True:
-            t_wait = time.perf_counter()
-            batches = next(groups, None)
-            data_s += time.perf_counter() - t_wait
+            with tracing.span("egopack.data_wait") as wait:
+                batches = next(groups, None)
+            data_s += wait.seconds
             if batches is None:
                 break
             if hist_every and first_batches is None:
@@ -519,13 +523,19 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                             if k.startswith(("grad_norm", "param_norm"))})
         means = _epoch_means(logs, [f"{t}_loss" for t in active] + norm_keys)
         train_s = time.perf_counter() - t0
+        spans = tracing.summary()
+        host_ms = {p: spans[f"egopack.{p}"]["median_ms"] for p in PHASES
+                   if f"egopack.{p}" in spans}
+        h2d_s = spans.get("egopack.h2d", {}).get("total_s", 0.0)
         stats.append({"epoch": epoch, "steps": n_steps, "train_s": train_s,
-                      "data_s": data_s})
+                      "data_s": data_s, "host_ms": host_ms, "h2d_s": h2d_s})
         losses = {t: means[f"{t}_loss"] for t in active}
         logger.info("Epoch %3d/%d (%d steps, %.1fs, lr %.2e) losses: %s; "
-                    "%.2fs waiting for data", epoch, cfg.num_epochs, n_steps,
+                    "%.2fs waiting for data; host ms a step (median): %s; "
+                    "%.3fs in pinned copies", epoch, cfg.num_epochs, n_steps,
                     train_s, lr, {t: round(v, 4) for t, v in losses.items()},
-                    data_s)
+                    data_s, {p: round(v, 2) for p, v in host_ms.items()},
+                    h2d_s)
         run_logger.log({**{f"train/{t}/loss": v for t, v in losses.items()},
                         **{f"train/{k}": means[k] for k in norm_keys}},
                        step=epoch)

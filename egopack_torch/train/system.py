@@ -49,6 +49,7 @@ from ..models.layers import GraphLayerNorm, ShardedGenerator
 from ..ops.losses import bce_with_logits, cross_entropy, masked_mean
 from ..parallel.collectives import all_reduce_
 from ..parallel.mesh import Mesh, gather_params
+from ..tracing import span
 from .optim import Adam, AdamState
 
 TASK_ORDER = ("ar", "lta", "oscc", "pnr")
@@ -538,7 +539,9 @@ class MultiTaskSystem:
                          per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
         ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
-        adds ``_subtree_norms`` to every step's logs. On a data axis the
+        adds ``_subtree_norms`` to every step's logs. Spans
+        (``egopack_torch.tracing``) mark the step and, inside it, its
+        forward, backward, norms and optimizer phases. On a data axis the
         gradients and the logged losses are summed over it (each rank's
         loss is its share of the global one, see
         ``ops.losses.masked_mean``)."""
@@ -547,12 +550,14 @@ class MultiTaskSystem:
                        log_norms: bool) -> Logs:
             params = self.params()
             names = optimizer.trainable_names(params)
-            total, logs = loss_fn(*args)
+            with span("egopack.forward"):
+                total, logs = loss_fn(*args)
             # gradients of the trainable leaves only (torch grad=None for
             # the rest); a trainable leaf outside the graph gets zeros, as
             # in JAX
-            grads = torch.autograd.grad(total, [params[n] for n in names],
-                                        materialize_grads=True)
+            with span("egopack.backward"):
+                grads = torch.autograd.grad(total, [params[n] for n in names],
+                                            materialize_grads=True)
             logs = {k: v.detach() for k, v in logs.items()}
             with torch.no_grad():
                 grads = self._sum_over_data(grads)
@@ -560,15 +565,23 @@ class MultiTaskSystem:
                 logs = dict(zip(keys, self._sum_over_data(
                     [logs[k] for k in keys])))
                 named = dict(zip(names, grads))
-                if log_norms:
-                    logs["grad_norm"] = self._norm(named)
-                    logs["param_norm"] = self._norm(params)
-                if per_layer_norms:
-                    logs.update(_subtree_norms(params, named, self._norm))
-            optimizer.apply(named, opt_state, params)
+                if log_norms or per_layer_norms:
+                    with span("egopack.norms"):
+                        if log_norms:
+                            logs["grad_norm"] = self._norm(named)
+                            logs["param_norm"] = self._norm(params)
+                        if per_layer_norms:
+                            logs.update(_subtree_norms(params, named,
+                                                       self._norm))
+            with span("egopack.optimizer"):
+                optimizer.apply(named, opt_state, params)
             return logs
 
-        return inner_step
+        def step(opt_state: AdamState, args: tuple, log_norms: bool) -> Logs:
+            with span("egopack.step"):
+                return inner_step(opt_state, args, log_norms)
+
+        return step
 
     def _sum_over_data(self, tensors: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:

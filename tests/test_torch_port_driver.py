@@ -187,6 +187,23 @@ def test_log_lines(runs):
         assert needle in text, needle
 
 
+def test_epoch_stats_carry_the_step_spans(runs):
+    """A one-epoch run's stats and log line: the median host ms of the train
+    step and of its phases (``egopack_torch.tracing``), the seconds in
+    pinned copies, the data wait read from its span."""
+    (stats,) = runs["first"]["epochs"]
+    host_ms = stats["host_ms"]
+    assert set(host_ms) == {"step", "forward", "backward", "norms",
+                            "optimizer"}
+    assert all(v > 0 for v in host_ms.values())
+    # every step's span holds its phases' spans
+    assert host_ms["step"] >= max(host_ms[p] for p in host_ms if p != "step")
+    assert 0 < stats["h2d_s"] <= stats["data_s"] <= stats["train_s"]
+    text = "\n".join(runs["lines"])
+    assert "host ms a step (median): {'step': " in text
+    assert "s in pinned copies" in text
+
+
 def test_resumed_run_equals_straight_run(runs):
     assert runs["first"]["start_epoch"] == 1
     assert runs["resumed"]["start_epoch"] == 2
