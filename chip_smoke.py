@@ -947,6 +947,10 @@ def phase_egopack(mtl, loaded, dev, card: str):
     for impl in ("auto", "plain"):
         restore(ego, params0, state0)
         ego.graphone.knn_impl = impl
+        # a step of its own: a replayed step keeps the kNN it was captured
+        # with (``train/step_graph.py``)
+        ego.step = ego.system.make_egopack_train_step(
+            ego.optimizer, ("oscc",), ego.graphone)
         losses[impl] = ego(LR_EGO)["oscc_loss"]
         outs[impl] = snapshot(ego.system)
     ego.graphone.knn_impl = "auto"
@@ -1237,11 +1241,16 @@ def profile_step(step, lr: float, path: str):
     events, the top kernels by device ms). The profiler has lost a window's
     first device events (a step's first 8 kernels, its first GEMM among
     them, in two runs), so each window starts with a step that is not read;
-    the numbers come from the window with the most device events."""
+    the numbers come from the window with the most device events. Each
+    window takes a new train step over ``step``'s state, whose calls run
+    eagerly (``train/step_graph.py`` replays a signature's 4th call on)."""
     step(lr)
     torch.cuda.synchronize()
     taken = []
     for w in range(PROFILE_WINDOWS):
+        # a step of its own each window, so both of its calls run eagerly:
+        # a replayed step makes no host ops to tie its kernels to
+        step.step = step.system.make_train_step(step.optimizer, ACTIVE)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             step(lr)

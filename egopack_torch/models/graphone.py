@@ -132,6 +132,7 @@ class GraphONE(nn.Module):
         self.ln_bias = zeros(d, t, h)
         self.w_proj = zeros(d, t, h, f)
         self.b_proj = zeros(d, t, f)
+        self._row_indices: Dict[tuple, torch.Tensor] = {}
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -151,6 +152,16 @@ class GraphONE(nn.Module):
             return tuple(0 for _ in tasks)
         return tuple(self.task_labels.index(t) for t in tasks)
 
+    def _row_index(self, rows_t: Tuple[int, ...]) -> torch.Tensor:
+        """``rows_t`` as an index on the parameters' device, made once: a
+        copy from the host cannot be captured into a CUDA graph."""
+        key = (rows_t, self.w_l.device)
+        rows = self._row_indices.get(key)
+        if rows is None:
+            rows = self._row_indices[key] = torch.as_tensor(
+                rows_t, device=self.w_l.device)
+        return rows
+
     def interact(self, features: Dict[str, torch.Tensor],
                  banks: Dict[str, PrototypeBank]
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -163,8 +174,7 @@ class GraphONE(nn.Module):
         # per-depth row gather is the identity and is skipped
         identity = (not self.share_params
                     and rows_t == tuple(range(len(self.task_labels))))
-        rows = None if identity else torch.as_tensor(
-            rows_t, device=self.w_l.device)
+        rows = None if identity else self._row_index(rows_t)
 
         def pick(w: torch.Tensor, d: int) -> torch.Tensor:
             return w[d] if identity else w[d].index_select(0, rows)

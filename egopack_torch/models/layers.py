@@ -356,7 +356,9 @@ def positional_encoding(pos: torch.Tensor, out_channels: int,
         exponents = torch.linspace(0.0, 1.0, half, device=pos.device)
     else:
         exponents = torch.zeros(max(half, 1), device=pos.device)
-    freqs = torch.pow(torch.tensor(base_freq, dtype=torch.float32,
-                                   device=pos.device), exponents)
+    # a fill on the device: a copy from the host cannot be captured into a
+    # CUDA graph
+    freqs = torch.pow(torch.full((), base_freq, dtype=torch.float32,
+                                 device=pos.device), exponents)
     angles = pos.float()[..., None] * freqs
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

@@ -51,6 +51,7 @@ from ..parallel.collectives import all_reduce_
 from ..parallel.mesh import Mesh, gather_params
 from ..tracing import span
 from .optim import Adam, AdamState
+from .step_graph import StepGraphs
 
 TASK_ORDER = ("ar", "lta", "oscc", "pnr")
 
@@ -539,15 +540,31 @@ class MultiTaskSystem:
                          per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
         ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
-        adds ``_subtree_norms`` to every step's logs. Spans
-        (``egopack_torch.tracing``) mark the step and, inside it, its
-        forward, backward, norms and optimizer phases. On a data axis the
+        adds ``_subtree_norms`` to every step's logs. On a data axis the
         gradients and the logged losses are summed over it (each rank's
         loss is its share of the global one, see
-        ``ops.losses.masked_mean``)."""
+        ``ops.losses.masked_mean``).
 
-        def inner_step(opt_state: AdamState, args: tuple,
-                       log_norms: bool) -> Logs:
+        The forward, the backward, the norms and the packing of the logs
+        run eagerly or replay from a CUDA graph (``step_graph.StepGraphs``,
+        keyed by the call's signature: its tensors' shapes, dtypes and
+        device, the banks, the dropout generator's device, ``log_norms``
+        and ``per_layer_norms``). A signature runs eagerly on its first 3
+        calls; the 4th captures it and that call and every later one
+        replay it, drawing the dropout masks from the caller's generator
+        where an eager call would. Steps stay eager on tensors off the
+        card, on a grid of more than one rank, and for signatures past the
+        4 captured. Adam stays one eager launch after the replay, reading
+        the graph's gradient buffers with this step's learning rate and
+        bias corrections; each call returns fresh log tensors.
+
+        Spans (``egopack_torch.tracing``) mark the step and, inside it, its
+        phases: forward, backward and norms on an eager or capturing call,
+        ``egopack.replay`` on a replay, the optimizer on every call."""
+
+        def grads_and_logs(args: tuple, log_norms: bool,
+                           per_layer: bool) -> Tuple[Dict[str, torch.Tensor],
+                                                     Logs]:
             params = self.params()
             names = optimizer.trainable_names(params)
             with span("egopack.forward"):
@@ -565,16 +582,24 @@ class MultiTaskSystem:
                 logs = dict(zip(keys, self._sum_over_data(
                     [logs[k] for k in keys])))
                 named = dict(zip(names, grads))
-                if log_norms or per_layer_norms:
+                if log_norms or per_layer:
                     with span("egopack.norms"):
                         if log_norms:
                             logs["grad_norm"] = self._norm(named)
                             logs["param_norm"] = self._norm(params)
-                        if per_layer_norms:
+                        if per_layer:
                             logs.update(_subtree_norms(params, named,
                                                        self._norm))
+            return named, logs
+
+        graphs = StepGraphs(grads_and_logs,
+                            lambda: self.mesh.data * self.mesh.model)
+
+        def inner_step(opt_state: AdamState, args: tuple,
+                       log_norms: bool) -> Logs:
+            named, logs = graphs(args, log_norms, per_layer_norms)
             with span("egopack.optimizer"):
-                optimizer.apply(named, opt_state, params)
+                optimizer.apply(named, opt_state, self.params())
             return logs
 
         def step(opt_state: AdamState, args: tuple, log_norms: bool) -> Logs:
