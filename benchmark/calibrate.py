@@ -65,7 +65,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run = cells.reference_run(cfg, traffic, kind, seeds, device,
-                                  rec.knn)
+                                  rec.knn, follow=rec.grads)
         return check.numbers(cfg, rec, run), check.worst_leaves(rec, run)
 
     for seed in args.seeds:

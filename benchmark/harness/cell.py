@@ -15,6 +15,7 @@ import torch
 from . import check, counts, inputs, trace, window
 from .manifest import Manifest
 from .program import ProgramStep, knn_recorder
+from ..reference import model as ref_model
 from ..reference import params as ref_params
 
 WARMUP = 3  # steps after the checked ones, before the window
@@ -108,7 +109,8 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    run = reference_run(cfg, traffic, kind_of_feed, seeds, device, rec.knn)
+    run = reference_run(cfg, traffic, kind_of_feed, seeds, device, rec.knn,
+                        follow=rec.grads)
     t_num = time.perf_counter()
     values = check.numbers(cfg, rec, run)
     del run
@@ -156,15 +158,18 @@ def program_first_steps(cfg: dict, traffic: dict, kind: ModuleType,
     if fault is not None:
         step = fault(step)
     rec = check.record_first_steps(
-        step, feed, knn_recorder if cfg["phase"] == 2 else None)
+        step, feed, knn_recorder if cfg["phase"] == 2 else None,
+        all_grads=ref_model.pools_over_nodes(cfg))
     return feed, step, rec
 
 
 def reference_run(cfg: dict, traffic: dict, kind: ModuleType,
                   seeds: Dict[str, int], device: torch.device, knn_seen=None,
-                  knn_dtype: torch.dtype = torch.float64):
+                  knn_dtype: torch.dtype = torch.float64, follow=(),
+                  keep_grads: bool = False):
     """The reference's first steps on the run's inputs, made again from
-    the seeds."""
+    the seeds, following the program's k-NN lists (``knn_seen``) and
+    gradients (``follow``) where it judges them."""
     weights = ref_params.init_params(
         cfg, inputs.generator(seeds["weights"], device), device)
     groups = kind.reference_groups(cfg, traffic, seeds["batches"], device,
@@ -173,7 +178,7 @@ def reference_run(cfg: dict, traffic: dict, kind: ModuleType,
              if cfg["phase"] == 2 else None)
     return check.reference_steps(
         cfg, weights, groups, inputs.generator(seeds["dropout"], device),
-        banks, knn_seen, knn_dtype)
+        banks, knn_seen, knn_dtype, follow, keep_grads)
 
 
 def reference_numbers(cfg: dict, traffic: dict, kind: ModuleType,
@@ -182,7 +187,8 @@ def reference_numbers(cfg: dict, traffic: dict, kind: ModuleType,
     """The numbers compared: the program's record against the
     reference."""
     return check.numbers(cfg, rec, reference_run(cfg, traffic, kind, seeds,
-                                                 device, rec.knn))
+                                                 device, rec.knn,
+                                                 follow=rec.grads))
 
 
 def control_numbers(cfg: dict, traffic: dict, kind: ModuleType,
@@ -195,7 +201,7 @@ def control_numbers(cfg: dict, traffic: dict, kind: ModuleType,
     tf32(True)
     try:
         low = reference_run(cfg, traffic, kind, seeds, device,
-                            knn_dtype=torch.float32)
+                            knn_dtype=torch.float32, keep_grads=True)
     finally:
         tf32(False)
     rec = check.Record(low.names, low.losses, low.first_grad, low.change(),
@@ -203,9 +209,11 @@ def control_numbers(cfg: dict, traffic: dict, kind: ModuleType,
                              low.first_grad_tensors.items()},
                        knn=low.knn.produced if low.knn else [],
                        groups=[{t: {k: v.cpu() for k, v in b.items()}
-                                for t, b in g.items()} for g in low.groups])
+                                for t, b in g.items()} for g in low.groups],
+                       grads=low.step_grads)
     return check.numbers(cfg, rec, reference_run(cfg, traffic, kind, seeds,
-                                                 device, rec.knn))
+                                                 device, rec.knn,
+                                                 follow=rec.grads))
 
 
 def check_lines(checks: Dict[str, dict]) -> List[str]:

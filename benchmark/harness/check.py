@@ -27,6 +27,11 @@ cell compares, each with its limit):
   left out (``quiet_leaves`` counts them);
 - phase 2 also ``knn_slack`` and ``knn_dist_gap`` (``KnnJudge``): the
   program's neighbour lists against the reference's distances;
+- with OSCC the novel task, ``node_ties_followed`` and ``node_tie_gap``
+  (``NodeMax``, not compared): how many ties of the max over a clip's
+  nodes the reference took the program's way over the steps, and the
+  widest of their gaps; each step's gradient, read back from the
+  program's first moments, shows which way it took them;
 - ``batch_gap``: the worst gap, element by element, between the batch
   groups the program's feed handed its first steps and those the reference
   made for itself (``reference_groups`` of the feed kind); ``inf`` where
@@ -59,19 +64,22 @@ class Record:
     grad: Dict[str, torch.Tensor] = field(default_factory=dict)
     knn: list = field(default_factory=list)
     groups: list = field(default_factory=list)
+    grads: list = field(default_factory=list)
 
 
-def record_first_steps(step, feed, start_knn: Optional[Callable] = None
-                       ) -> Record:
+def record_first_steps(step, feed, start_knn: Optional[Callable] = None,
+                       all_grads: bool = False) -> Record:
     """Drive ``step`` through its first ``STEPS`` calls on the feed's next
     groups and keep the losses, the first gradient's leaf norms, each
-    leaf's change, and (with ``start_knn``) the k-NN's outputs."""
+    leaf's change, (with ``start_knn``) the k-NN's outputs and (with
+    ``all_grads``) each step's gradient as Adam got it, read back from the
+    first moments on the host: ``(m_t - b1 m_{t-1}) / (1 - b1)``."""
     names = step.trainable_names()
     params = step.system.params()
     start = {n: params[n].detach().clone() for n in names}
     stop_knn = start_knn() if start_knn else None
     rec = Record(names)
-    losses, grad = [], None
+    losses, grad, moments = [], None, []
     b1 = step.optimizer.b1
     for i in range(STEPS):
         batches, _ = feed.next()
@@ -84,6 +92,13 @@ def record_first_steps(step, feed, start_knn: Optional[Callable] = None
             grad = torch.stack([first[n].double().norm() for n in names])
             rec.grad = {n: g.cpu() for n, g in first.items()}
             del first
+        if all_grads:
+            moments.append({n: step.opt_state.mu[n].to(
+                "cpu", torch.float32, copy=True) for n in names})
+    if moments:
+        rec.grads = [rec.grad] + [
+            {n: (m[n] - b1 * prev[n]) / (1.0 - b1) for n in names}
+            for prev, m in zip(moments, moments[1:])]
     change = torch.stack([(params[n].detach() - start[n]).double().norm()
                           for n in names])
     if stop_knn is not None:
@@ -96,12 +111,16 @@ def record_first_steps(step, feed, start_knn: Optional[Callable] = None
 
 def reference_steps(cfg: dict, params, batch_groups, dropout_gen,
                     banks=None, knn_seen=None,
-                    knn_dtype=torch.float64) -> ref.ReferenceRun:
-    """The reference's first ``STEPS`` steps."""
+                    knn_dtype=torch.float64, follow=(),
+                    keep_grads: bool = False) -> ref.ReferenceRun:
+    """The reference's first ``STEPS`` steps, following the program's
+    k-NN lists (``knn_seen``) and its side of each tie of a max over
+    nodes (``follow``: its gradients, a step)."""
     knn = (ref.KnnJudge(cfg["graphone"]["k"], knn_dtype, seen=knn_seen)
            if cfg["phase"] == 2 else None)
     run = ref.ReferenceRun(cfg, params, ref_params.trainable_names(cfg),
-                           banks=banks, knn=knn)
+                           banks=banks, knn=knn, follow=follow,
+                           keep_grads=keep_grads)
     run.groups = list(batch_groups[:STEPS])
     for batches in run.groups:
         run.step(batches, dropout_gen)
@@ -118,29 +137,6 @@ def _leaf_gaps(prog: Dict[str, float], want: Dict[str, float],
         gap = abs(prog[n] - want[n]) / max(want[n], med)
         gaps.append(gap if math.isfinite(gap) else math.inf)
     return gaps
-
-
-ELEMENT_TOL = 1e-2  # of the leaf's root mean square
-
-
-def _elements_off(prog: Dict[str, torch.Tensor],
-                  want: Dict[str, torch.Tensor], names: List[str]) -> float:
-    """The share of all the trainable elements of the first gradient that
-    differ from the reference's by more than ``ELEMENT_TOL`` of the root
-    mean square of the reference's leaf."""
-    if not prog:
-        return math.inf
-    off = total = 0
-    for n in names:
-        w = want[n]
-        p = prog[n].to(w.device)
-        if p.shape != w.shape:
-            return math.inf
-        tol = ELEMENT_TOL * w.double().pow(2).mean().sqrt()
-        diff = (p.double() - w.double()).abs()
-        off += int((~(diff <= tol)).sum())
-        total += w.numel()
-    return off / total
 
 
 def _whole_gap(prog: Dict[str, float], want: Dict[str, float],
@@ -203,8 +199,11 @@ def numbers(cfg: dict, rec: Record, run: ref.ReferenceRun
     grad = _leaf_gaps(rec.first_grad, run.first_grad, run.names)
     out["grad_gap"] = max(grad)
     out["grad_gap_median"] = statistics.median(grad)
-    out["grad_elem_off"] = _elements_off(rec.grad, run.first_grad_tensors,
-                                         run.names)
+    out["grad_elem_off"] = ref.elements_off(rec.grad, run.first_grad_tensors,
+                                            run.names)
+    taken = [t for step in run.followed for t in step]
+    out["node_ties_followed"] = float(len(taken))
+    out["node_tie_gap"] = max((t[0] for t in taken), default=0.0)
     plain = run.first_plain_grad
     med = statistics.median(plain.values())
     moved = [n for n in run.names if plain[n] >= QUIET_GRAD * med]

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from typing import Iterable, Tuple
 
+from ..reference.params import head_classes
+
 # (SXM, NVL, PCIe) of each H100 part; the H200 has the SXM part's rates
 # and faster memory
 _HBM = {"SXM": 3.35e12, "NVL": 3.9e12, "PCIe": 2.0e12}
@@ -75,27 +77,37 @@ def linear(rows: int, k: int, n: int, input_grad: bool = True,
     return fwd if not train else fwd * (2 + int(input_grad))
 
 
-def _backbone(cfg: dict, rows, layout: str) -> int:
+def _backbone(cfg: dict, rows, layout: str, train: bool = True) -> int:
     """Pooling over every task's nodes in one product (its input needs no
     gradient), then the SAGE stack: "concat" aggregates over all rows at
-    once, "slice" per task and sample."""
+    once, "slice" per task and sample. Without ``train`` the forward
+    alone."""
     b, h, tp = cfg["batch_size"], cfg["hidden_size"], cfg["tp_hidden_size"]
     r = sum(rows)
     out = (linear(r, cfg["num_segments"] * cfg["feature_dim"], tp,
-                  input_grad=False)
-           + linear(r, tp, tp) + linear(r, tp, h))
+                  input_grad=False, train=train)
+           + linear(r, tp, tp, train=train) + linear(r, tp, h, train=train))
     for _ in range(cfg["depth"]):
-        out += 3 * linear(r, h, h)  # lin_project, lin_l, lin_r
+        out += 3 * linear(r, h, h, train=train)  # lin_project, lin_l, lin_r
         if layout == "concat":
             agg = 2 * r * r * h
         else:
             agg = sum(2 * rt * (rt // b) * h for rt in rows)
-        out += 2 * agg  # forward, and the messages' gradient
-    return out + linear(r, h, h)  # out_lin
+        out += (2 if train else 1) * agg  # forward, and the messages' gradient
+    return out + linear(r, h, h, train=train)  # out_lin
 
 
-def _projection(rows: int, h: int, train: bool = True) -> int:
-    return linear(rows, h, h, train=train) + linear(rows, h, h, train=train)
+def _projection(rows: int, h: int, train: bool = True,
+                input_grad: bool = True) -> int:
+    return (linear(rows, h, h, input_grad=input_grad, train=train)
+            + linear(rows, h, h, train=train))
+
+
+def classified_rows(cfg: dict, task: str) -> int:
+    """The rows a classifier of ``task`` sees: OSCC classifies the pool of
+    each sample's nodes, the others every node."""
+    b = cfg["batch_size"]
+    return b if task == "oscc" else b * cfg["nodes"][task]
 
 
 def phase1_step_flops(cfg: dict) -> int:
@@ -106,33 +118,37 @@ def phase1_step_flops(cfg: dict) -> int:
         layout = ("concat" if sum(rows) <= CONCAT_AUTO_MAX_NODES
                   else "slice")
     out = _backbone(cfg, rows, layout)
-    classes = {"ar": (cfg["n_verbs"], cfg["n_nouns"]),
-               "lta": (cfg["n_verbs"], cfg["n_nouns"]), "pnr": (1,),
-               "oscc": (2,)}
     for t, r in zip(cfg["tasks"], rows):
         out += _projection(r, h)
-        cls_rows = b if t == "oscc" else r  # OSCC classifies the pool
-        out += sum(linear(cls_rows, h, c) for c in classes[t])
+        out += sum(linear(classified_rows(cfg, t), h, c)
+                   for c in head_classes(cfg, t))
     return out
 
 
 def phase2_step_flops(cfg: dict) -> int:
-    """Novel OSCC with late fusion over the aux tasks; the backbone is
-    trained (its mode changes no product); GraphONE's stages as three
-    ``(T, M, F) x (F, H)`` products each, of which the first stage's two
-    take inputs that need no gradient; the residual adds no product; the
-    k-NN counts its products with every bank row, padded ones included."""
-    b, h = cfg["batch_size"], cfg["hidden_size"]
+    """The novel task ``cfg["tasks"][0]`` with late fusion over the aux
+    tasks: the backbone over the novel task's nodes, its backward products
+    only where it trains (``backprop_temporal_graph``; its mode changes no
+    product), and the novel head's projection taking its input's gradient
+    only then; GraphONE's stages as three ``(T, M, F) x (F, H)`` products
+    each, of which the first stage's two take inputs that need no
+    gradient; the residual adds no product; the k-NN counts its products
+    with every bank row, padded ones included; the novel head's primary
+    and aux classifier sets at its widths."""
+    task = cfg["tasks"][0]
+    h = cfg["hidden_size"]
     k_aux = len(cfg["aux_tasks"])
     depth = cfg["graphone"]["depth"]
-    rows = b * cfg["nodes"]["oscc"]
-    out = _backbone(cfg, [rows], "slice")
-    out += _projection(rows, h)  # the OSCC head's projection
+    trains = cfg["backprop_temporal_graph"]
+    rows = cfg["batch_size"] * cfg["nodes"][task]
+    out = _backbone(cfg, [rows], "slice", train=trains)
+    out += _projection(rows, h, input_grad=trains)  # the novel head's
     out += k_aux * _projection(rows, h, train=False)  # aux, detached
     out += 2 * k_aux * rows * cfg["banks"]["rows"] * h  # k-NN, no gradient
     stage = 2 * k_aux * rows * h * cfg["graphone"]["hidden_size"]
     out += depth * 3 * stage + 4 * stage + (depth - 1) * 6 * stage
-    out += (1 + k_aux) * linear(b, h, 2)  # primary and aux classifiers
+    out += (1 + k_aux) * sum(linear(classified_rows(cfg, task), h, c)
+                             for c in head_classes(cfg, task))
     return out
 
 
@@ -170,9 +186,10 @@ def knn_counts(tasks: int, rows: int, valid: int, padded: int, width: int,
 
 
 def knn_least_s(cfg: dict, card: str) -> Tuple[float, str]:
-    """Least time of one k-NN call and the bound that sets it."""
-    nbytes, ops = knn_counts(len(cfg["aux_tasks"]),
-                             cfg["batch_size"] * cfg["nodes"]["oscc"],
+    """Least time of one k-NN call and the bound that sets it; the query
+    rows are every node of the novel task's batch."""
+    rows = cfg["batch_size"] * cfg["nodes"][cfg["tasks"][0]]
+    nbytes, ops = knn_counts(len(cfg["aux_tasks"]), rows,
                              cfg["banks"]["valid"], cfg["banks"]["rows"],
                              cfg["hidden_size"], cfg["graphone"]["k"])
     t_bytes = nbytes / hbm_bytes_per_s(card)

@@ -16,6 +16,16 @@ cell names lives in a file of its own under ``benchmark/``:
   returns its value or None.
 
 A later cell, mix or metric is new files and new entries, never an edit.
+
+A phase-2 configuration (``"phase": 2``) of any novel task gives, beside
+the sizes a phase-1 one gives: ``tasks`` (the novel task alone),
+``aux_tasks`` (the tasks of its prototype banks and GraphONE, in the
+published trainer's order ar, oscc, lta, pnr), ``head_aux`` (each head's
+aux classifier sets; without it, the narrower sets ``egopack-novel-oscc``
+is built with), ``backprop_temporal_graph``,
+``temporal_graph_train_mode``, ``late_fusion``, ``task_head_dropout``,
+``graphone`` (``k``, ``depth``, ``hidden_size``, ``residual``,
+``distance_func``, ``freeze``) and ``banks`` (``rows``, ``valid``).
 """
 
 from __future__ import annotations

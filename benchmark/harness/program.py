@@ -21,13 +21,16 @@ from egopack_torch.models.pooling import TRNPooling
 from egopack_torch.train import optim as topt
 from egopack_torch.train.system import CKPT_KEYS, MultiTaskSystem, TaskSetup
 
+from ..reference.params import head_aux
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _phase2_system(cfg: dict, device: torch.device) -> MultiTaskSystem:
     """``driver.build_system(phase2=True)`` at the configuration: every head
-    with its aux classifier sets and the head dropout, OSCC projecting to
-    the hidden width and averaging its logits."""
+    with the aux classifier sets the configuration gives it (``head_aux``)
+    and the head dropout, OSCC projecting to the hidden width and averaging
+    its logits."""
     h, d, s = cfg["hidden_size"], cfg["feature_dim"], cfg["num_segments"]
     pooling = TRNPooling(d, h, s, hidden_size=cfg["tp_hidden_size"],
                          dropout=cfg["tp_dropout"], device=device)
@@ -37,7 +40,7 @@ def _phase2_system(cfg: dict, device: torch.device) -> MultiTaskSystem:
     common = dict(input_size=h, features_size=h, dropout=0.0,
                   head_dropout=cfg["task_head_dropout"], device=device)
     classes = (cfg["n_verbs"], cfg["n_nouns"])
-    aux = entry.PHASE2_AUX
+    aux = head_aux(cfg)
     heads = {
         "ar": RecognitionTask("ar", heads=classes, aux_tasks=aux["ar"],
                               **common),

@@ -12,8 +12,8 @@ window under ``torch.profiler``, each beginning on an idle card, after one
 untimed profile that starts the profiler up. The first ``DEVICE_STRETCHES``
 record the card's activity alone, which adds little to the host's work, so
 the card's busy and idle time read as in the window; the last also records
-the host's operations, for the time of each operation on the card and for
-naming what the host did while the card idled. An untraced run that reports
+the host's operations, for the launch calls inside the program's spans and
+for naming what the host did while the card idled. An untraced run that reports
 the card's busy time takes the card-only stretches alone. A stretch whose
 count of Adam kernels differs from its steps lost device events, and
 another is taken in its place.
@@ -43,7 +43,6 @@ class Stretch:
     steps: int
     device: list        # device events: (name, start_us, end_us)
     host: list          # CPU events: (name, start_us, end_us)
-    op_device_us: dict  # self device time of each op, by op name
     knn_calls: int
     host_ops: bool      # the host's operations recorded too
 
@@ -75,14 +74,7 @@ def _read(prof, steps: int, knn_calls: int, host_ops: bool) -> Stretch:
             host.append(span)
         elif not e.name.startswith(RANGES):  # not the ranges' device echo
             dev.append(span)
-    ops = {}
-    for a in prof.key_averages():
-        us = getattr(a, "self_device_time_total", None)
-        if us is None:
-            us = getattr(a, "self_cuda_time_total", 0.0)
-        if us:
-            ops[a.key] = ops.get(a.key, 0.0) + us
-    return Stretch(steps, dev, host, ops, knn_calls, host_ops)
+    return Stretch(steps, dev, host, knn_calls, host_ops)
 
 
 class _HostEvent:

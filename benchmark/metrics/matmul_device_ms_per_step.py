@@ -1,18 +1,29 @@
-"""Device milliseconds a step of the matrix products (model layer:
-cuBLAS through torch ops), as the profiler attributes self device time to
-the ops ``aten::mm``, ``aten::addmm``, ``aten::bmm``, ``aten::baddbmm``,
-``aten::mv`` and ``aten::addmv``, over the steps of the stretches that
-recorded the host's operations."""
+"""Device milliseconds a step of the matrix products (model layer: cuBLAS
+and CUTLASS through torch ops), by kernel name: the summed durations of
+the kernels whose name holds ``gemm``, ``gemv`` or ``cublas`` (any case;
+the last takes cuBLAS's split-K reductions, epilogues, scalings and dot
+products, named by their parameter types), the k-NN's own ``knn_*``
+kernels left out, over the stretches that recorded the card alone, over
+their steps. Kernels are named alike whether the step runs eagerly or
+replays a CUDA graph, so it reads under both. Left out: the fills and
+torch's copies that a product op may launch, which no name tells from the
+step's others. ``tests/test_bench_kernels.py`` holds the names, on the
+card, to the kernels that the product ops launch in an eager step."""
 
-OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::mv",
-       "aten::addmv")
+GEMM = ("gemm", "gemv", "cublas")
+NOT_GEMM = "knn_"
+
+
+def is_product(name: str) -> bool:
+    """Whether the kernel ``name`` is a matrix product's."""
+    return any(g in name.lower() for g in GEMM) and NOT_GEMM not in name
 
 
 def read(ctx):
-    stretches = ctx.op_stretches()
+    stretches = ctx.device_stretches()
     steps = ctx.traced_steps(stretches)
-    us = sum(v for s in stretches for k, v in s.op_device_us.items()
-             if k in OPS)
+    us = sum(e - s for st in stretches for name, s, e in st.device
+             if is_product(name))
     if not steps or not us:
         return None
     return us / 1e3 / steps

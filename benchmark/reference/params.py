@@ -8,7 +8,8 @@ and the reference alike. Shapes follow the published model: TRN pooling
 (``S*D -> tp_hidden -> tp_hidden -> hidden``), ``depth`` SAGE layers with a
 projection, each with a graph LayerNorm, the output linear, four task heads
 (a projection MLP and one classifier a label head; in phase 2 also one
-classifier set per aux task) and, in phase 2, GraphONE's stacked stages.
+classifier set per aux task of the head, :func:`head_aux`) and, in phase
+2, GraphONE's stacked stages.
 
 Init (``init`` of each entry): ``"uniform"`` draws U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) as torch's ``nn.Linear`` does for its weight and bias;
@@ -42,10 +43,19 @@ def _norm(out: List[Leaf], name: str, dim: int) -> None:
 
 
 HEAD_NAMES = {"ar": "recognition", "lta": "lta", "oscc": "oscc", "pnr": "pnr"}
-# the classifier sets of each head in phase 2 (the published PHASE2 aux
-# tasks of each head)
+# the aux classifier sets of each head in phase 2 where the configuration
+# gives no ``head_aux``: the sets ``egopack-novel-oscc`` is built with,
+# narrower than the published trainer's (each head gets the other three
+# tasks); its leaf list, and so its one U[0, 1) draw, depend on them
 PHASE2_AUX = {"ar": ("lta", "pnr"), "oscc": ("ar", "lta", "pnr"),
               "lta": ("ar", "pnr"), "pnr": ("ar", "lta")}
+
+
+def head_aux(cfg: dict) -> Dict[str, Tuple[str, ...]]:
+    """Each head's phase-2 aux classifier sets, in order: the
+    configuration's ``head_aux``, else :data:`PHASE2_AUX`."""
+    sets = cfg.get("head_aux", PHASE2_AUX)
+    return {t: tuple(sets[t]) for t in HEAD_NAMES}
 
 
 def head_classes(cfg: dict, task: str) -> Sequence[int]:
@@ -71,14 +81,14 @@ def param_spec(cfg: dict) -> List[Leaf]:
         _norm(out, f"temporal_graph.gn{i}", h)
     _linear(out, "temporal_graph.out_lin", h, h)
     phase2 = cfg["phase"] == 2
+    aux = head_aux(cfg) if phase2 else {}
     for task in ("ar", "lta", "oscc", "pnr"):
         head = f"task.{HEAD_NAMES[task]}"
         _linear(out, f"{head}.proj_fc0", h, h)
         _norm(out, f"{head}.proj_ln", h)
         _linear(out, f"{head}.proj_fc1", h, h)
         classes = head_classes(cfg, task)
-        sets = [""] + ([f"aux_{t}_" for t in PHASE2_AUX[task]]
-                       if phase2 else [])
+        sets = [""] + [f"aux_{t}_" for t in aux.get(task, ())]
         for prefix in sets:
             if len(classes) == 1:
                 _linear(out, f"{head}.{prefix}cls.TLinear_0", h, classes[0])

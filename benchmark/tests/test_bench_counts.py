@@ -54,6 +54,34 @@ def test_phase2_matches_the_program_at_full_width(cfgs):
                                                               2048)
 
 
+def test_phase2_by_hand_for_a_frozen_backbone_and_node_classifiers(cfgs):
+    """Novel LTA at a small size: batch 2, 3 nodes, 2 segments of 4, hidden
+    5, depth 1, two aux banks of 7 rows, GraphONE depth 1 of width 6, 2
+    verbs and 3 nouns; the backbone frozen, so its forward alone and no
+    gradient into the features."""
+    cfg = {**cfgs[1], "tasks": ["lta"], "aux_tasks": ["ar", "pnr"],
+           "nodes": {"lta": 3}, "batch_size": 2, "num_segments": 2,
+           "feature_dim": 4, "hidden_size": 5, "tp_hidden_size": 5,
+           "depth": 1, "n_verbs": 2, "n_nouns": 3,
+           "backprop_temporal_graph": False, "banks": {"rows": 7},
+           "graphone": {**cfgs[1]["graphone"], "depth": 1,
+                        "hidden_size": 6}}
+    r, h = 6, 5
+    backbone = (2 * r * 8 * h + 2 * 2 * r * h * h + 3 * 2 * r * h * h
+                + 2 * r * 3 * h + 2 * r * h * h)  # the aggregation once
+    projection = 2 * 2 * r * h * h + 3 * 2 * r * h * h  # no input gradient
+    aux = 2 * 2 * (2 * r * h * h)
+    knn = 2 * 2 * r * 7 * h
+    stage = 2 * 2 * r * h * 6
+    graphone = 3 * stage + 4 * stage
+    classifiers = 3 * (3 * 2 * r * h * 2 + 3 * 2 * r * h * 3)
+    assert counts.phase2_step_flops(cfg) == (backbone + projection + aux
+                                             + knn + graphone + classifiers)
+    assert counts.knn_least_s({**cfg, "banks": {"rows": 7, "valid": 7}},
+                              CARD)[0] == pytest.approx(
+        counts.knn_counts(2, r, 7, 7, h, cfg["graphone"]["k"])[0] / 3.35e12)
+
+
 def test_trainable_elements(cfgs):
     assert params.trainable_elements(cfgs[0]) == 24_842_403
     names = params.trainable_names(cfgs[1])

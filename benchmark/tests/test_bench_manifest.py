@@ -160,8 +160,11 @@ def test_new_cell_and_metric_are_new_files(tmp_path, bench):
     m = Manifest(root)
     cell = m.cell("mtl-step-small")
     assert m.traffic(cell["traffic"])["groups"] == 8
+    # the metrics that list no cells read in the new one too, with no edit
+    every = [x["name"] for x in bench["per_layer"] if "workloads" not in x]
+    assert "matmul_device_ms_per_step" in every
     assert [x["name"] for x in m.per_layer("mtl-step-small")] == \
-        ["steps_traced", "data_wait_ms"]
+        every + ["steps_traced", "data_wait_ms"]
 
     out = run_cell(m, "mtl-step-small", 7, 0.2, True, torch.device("cpu"),
                    time.perf_counter(), overrides=TINY, log=lambda line: None)

@@ -40,6 +40,12 @@ def test_a_broken_step_is_not_correct(cell, fault):
     assert failing
 
 
+# metrics that a replayed step left with nothing to read, or reading the
+# capture call rather than the step, and so retired
+RETIRED = {f"{p}_{m}" for p in ("forward", "backward", "norms")
+           for m in ("launches_per_step", "host_ms")}
+
+
 def test_traced_run_reports_per_layer_metrics():
     out = run_tiny("novel-oscc-step", traced=True, seconds=0.2)
     assert out["correct"]
@@ -47,6 +53,14 @@ def test_traced_run_reports_per_layer_metrics():
     assert set(out["metrics"]) == {"host_ms_per_step", "window_step_ms_p95"}
     assert {"busy_s", "window_s"} <= set(out["device"])
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+    m = manifest()
+    for cell in CELLS:
+        names = {x["name"] for x in m.per_layer(cell)}
+        assert not names & RETIRED
+        # read by kernel name in every cell, a later one included
+        assert "matmul_device_ms_per_step" in names
+    assert not any((m.bench_dir / "metrics" / f"{n}.py").exists()
+                   for n in RETIRED)
 
 
 def test_dropout_masks_are_the_programs():

@@ -1,6 +1,7 @@
 """The metrics that read the program's spans, on hand-built stretches: the
-launch calls a phase makes a step, and the host ms of a phase from the
-program's record; each reads nothing where the program has no spans."""
+launch calls a phase makes a step (``harness/spans.py``, which the
+optimizer's metric reads), and the host ms of a span from the program's
+record; each reads nothing where the program has no spans."""
 
 import sys
 
@@ -11,18 +12,15 @@ from benchmark.harness.manifest import Manifest
 from benchmark.harness.trace import Context
 from benchmark.harness.window import Stretch, WindowResult
 
+SPANS = (spans.STEP,) + spans.PHASES
 HOST_MS = {"step_span_host_ms": "egopack.step",
-           "forward_host_ms": "egopack.forward",
-           "backward_host_ms": "egopack.backward",
-           "norms_host_ms": "egopack.norms",
            "optimizer_host_ms": "egopack.optimizer"}
-LAUNCHES = {f"{p}_launches_per_step": f"egopack.{p}"
-            for p in ("forward", "backward", "norms", "optimizer")}
+LAUNCHES = {"optimizer_launches_per_step": "egopack.optimizer"}
 CARD = "NVIDIA H100 80GB HBM3"
 
 
 def _ctx(host, steps, host_ops=True, card=CARD):
-    stretch = Stretch(steps, [], host, {}, 0, host_ops)
+    stretch = Stretch(steps, [], host, 0, host_ops)
     return Context({}, card, WindowResult(stretches=[stretch]), 0, 0)
 
 
@@ -57,11 +55,10 @@ def _two_steps():
 
 def test_launches_inside_outside_and_across_spans():
     ctx = _ctx(_two_steps(), steps=2)
-    got = {n: _read(n, ctx) for n in LAUNCHES}
-    assert got == {"forward_launches_per_step": 2.0,
-                   "backward_launches_per_step": 2.0,
-                   "norms_launches_per_step": 3.0,
-                   "optimizer_launches_per_step": 1.0}
+    got = {n: spans.launches_per_step(ctx, n) for n in SPANS[1:]}
+    assert got == {"egopack.forward": 2.0, "egopack.backward": 2.0,
+                   "egopack.norms": 3.0, "egopack.optimizer": 1.0}
+    assert _read("optimizer_launches_per_step", ctx) == 1.0
     st = ctx.op_stretches()[0]
     calls = spans.launches(st)
     in_step = spans.inside(calls, spans.spans(st, "egopack.step"))
@@ -69,18 +66,37 @@ def test_launches_inside_outside_and_across_spans():
     assert in_step - sum(got.values()) * 2 == 2 * 2  # the step's own
 
 
+def test_the_span_check_script_reads_the_harness():
+    """``scripts/check_step_spans.py`` reports launches by phase from the
+    names this module gives (``STEP``, ``PHASES``, ``LAUNCH_PREFIXES``):
+    its report on the hand-built steps agrees with the readers here."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[2] / "scripts" / \
+        "check_step_spans.py"
+    spec = importlib.util.spec_from_file_location("check_step_spans", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    (got,) = script.launch_report(_ctx(_two_steps(), steps=2))
+    assert got["phases"] == {"egopack.forward": 4, "egopack.backward": 4,
+                             "egopack.norms": 6, "egopack.optimizer": 2}
+    assert (got["in_step"], got["step_self"]) == (20, 4)
+    assert (got["outside_step"], got["outside_step_under_feed"]) == (1, 1)
+
+
 def test_steps_divide_and_card_only_stretches_are_not_read():
     host = _two_steps()
-    assert _read("norms_launches_per_step", _ctx(host, steps=4)) == 1.5
-    assert _read("norms_launches_per_step",
-                 _ctx(host, steps=2, host_ops=False)) is None
+    assert spans.launches_per_step(_ctx(host, steps=4),
+                                   "egopack.norms") == 1.5
+    assert spans.launches_per_step(_ctx(host, steps=2, host_ops=False),
+                                   "egopack.norms") is None
 
 
 def test_no_launch_calls_no_reading():
     """The CPU's trace has the spans but no runtime calls."""
     host = [e for e in _two_steps() if e[0].startswith(("egopack.", "aten"))]
-    for name in LAUNCHES:
-        assert _read(name, _ctx(host, steps=2)) is None
+    for span in SPANS:
+        assert spans.launches_per_step(_ctx(host, steps=2), span) is None
 
 
 @pytest.mark.parametrize("name", sorted(HOST_MS) + sorted(LAUNCHES))
@@ -108,7 +124,7 @@ def test_host_ms_reads_the_programs_record():
             row = tracing.summary().get(span)
             assert got == (row["median_ms"] if row else None), name
         assert _read("step_span_host_ms", ctx) > 0
-        assert _read("norms_host_ms", ctx) is None
+        assert _read("optimizer_host_ms", ctx) is None
     finally:
         tracing.reset()
 
@@ -142,7 +158,7 @@ def test_the_benchmarks_step_records_the_five_spans():
         got = tracing.summary()
         steps = got["egopack.step"]["count"]
         assert steps >= 1
-        for span in HOST_MS.values():
+        for span in SPANS:
             assert got[span]["count"] == steps, span
             assert got[span]["median_ms"] > 0, span
     finally:
