@@ -1,33 +1,43 @@
-"""The port's phase-2 EgoPack step against the JAX one: novel OSCC over the
-AR/LTA/PNR banks, same weights (``interop``), same banks and batches,
-dropout off. Tolerances: losses rtol 1e-5; gradients, norms, logits and
-parameters rtol 1e-4 / atol 1e-5 (float32 sums in another order)."""
+"""The port's phase-2 EgoPack step against the JAX one, same weights
+(``interop``), same banks and batches, dropout off, for two novel tasks:
+OSCC over the AR/LTA/PNR banks with the entry's narrow aux sets, and LTA
+over the AR/OSCC/PNR banks with the published ones
+(``experiments/egopack/lta.yaml``; there the backbone is frozen). Tolerances:
+losses rtol 1e-5; gradients, norms, logits and parameters rtol 1e-4 /
+atol 1e-5 (float32 sums in another order)."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from egopack_torch import entry as tentry
 from egopack_torch import interop
 from egopack_torch.models.heads import OSCCTask as TOSCC
 from egopack_torch.train import optim as topt
 from egopack_torch.train.checkpoint import merge_loaded_params
+from egopack_torch.train.system import CKPT_KEYS
 from egopack_tpu.models.heads import OSCCTask as JOSCC
 from egopack_tpu.train import checkpoint as jckpt
 from egopack_tpu.train import optim as jopt
 from egopack_tpu.train.driver import trainable_mask_fn as j_mask
-from torch_port_common import (HIDDEN, LOSS_TOL, MODULE_TOL, batches, close,
-                               jax_phase2, jax_system, numpy_banks, to_np,
-                               torch_phase2, torch_system)
+from torch_port_common import (FEAT, HIDDEN, LOSS_TOL, MODULE_TOL,
+                               PUBLISHED_AUX, batches, close, jax_phase2,
+                               jax_system, numpy_banks, to_np, torch_phase2,
+                               torch_system)
 
 torch.set_num_threads(1)
 
 LR = 1e-3
 ACTIVE = ("oscc",)
+# each novel task: the tasks whose banks GraphONE reads, and its heads' aux
+# classifier sets (None: the entry's narrow ones)
+NOVEL = {"oscc": (("ar", "lta", "pnr"), None),
+         "lta": (("ar", "oscc", "pnr"), PUBLISHED_AUX)}
 
 
-def _trainable(backprop=True, freeze=True):
-    keys = ["task/oscc", "graphone"]
+def _trainable(backprop=True, freeze=True, novel="oscc"):
+    keys = [CKPT_KEYS[novel], "graphone"]
     if not freeze:
         keys.append("graphone_banks")
     if backprop:
@@ -35,29 +45,37 @@ def _trainable(backprop=True, freeze=True):
     return keys
 
 
-def _setup(freeze=True, k=8):
-    banks = numpy_banks()
-    jsys, jgo, params, jb = jax_phase2(banks, k=k, freeze=freeze)
-    tsys, tgo, tb = torch_phase2(params, banks, k=k, freeze=freeze)
+def _setup(freeze=True, k=8, novel="oscc"):
+    tasks, head_aux = NOVEL[novel]
+    banks = numpy_banks(tasks=tasks)
+    jsys, jgo, params, jb = jax_phase2(banks, k=k, freeze=freeze,
+                                       head_aux=head_aux)
+    tsys, tgo, tb = torch_phase2(params, banks, k=k, freeze=freeze,
+                                 head_aux=head_aux)
     jbatch, tbatch = batches(jsys, seed=2)
     return (jsys, jgo, params, jb, jbatch), (tsys, tgo, tb, tbatch)
 
 
-@pytest.mark.parametrize("backprop", [True, False])
-def test_loss_and_gradients_match_jax(backprop):
-    (jsys, jgo, params, jb, jbatch), (tsys, tgo, tb, tbatch) = _setup()
+@pytest.mark.parametrize("novel,backprop", [
+    pytest.param("oscc", True, id="True"),
+    pytest.param("oscc", False, id="False"),
+    pytest.param("lta", False, id="lta-False")])
+def test_loss_and_gradients_match_jax(novel, backprop):
+    (jsys, jgo, params, jb, jbatch), (tsys, tgo, tb, tbatch) = _setup(
+        novel=novel)
+    active = (novel,)
     kw = dict(backprop_temporal_graph=backprop,
               temporal_graph_train_mode=False, late_fusion=True)
-    jloss_fn = jsys.make_egopack_loss_fn(ACTIVE, jgo, **kw)
+    jloss_fn = jsys.make_egopack_loss_fn(active, jgo, **kw)
     (jtotal, jlogs), jgrads = jax.jit(jax.value_and_grad(
         jloss_fn, has_aux=True))(params, jb, jbatch, jax.random.PRNGKey(0))
-    tloss_fn = tsys.make_egopack_loss_fn(ACTIVE, tgo, **kw)
+    tloss_fn = tsys.make_egopack_loss_fn(active, tgo, **kw)
     ttotal, tlogs = tloss_fn(tb, tbatch, None)
     close(ttotal, jtotal, **LOSS_TOL)
-    close(tlogs["oscc_loss"], jlogs["oscc_loss"], **LOSS_TOL)
+    close(tlogs[f"{novel}_loss"], jlogs[f"{novel}_loss"], **LOSS_TOL)
     tparams = tsys.params()
     names = [n for n in tparams
-             if interop.top_level_key(n) in _trainable(backprop)]
+             if interop.top_level_key(n) in _trainable(backprop, novel=novel)]
     tgrads = dict(zip(names, torch.autograd.grad(
         ttotal, [tparams[n] for n in names], materialize_grads=True)))
     jflat = interop.from_flax(to_np(jgrads))
@@ -69,25 +87,32 @@ def test_loss_and_gradients_match_jax(backprop):
             assert not g.any(), name
     moved = [n for n in names if tgrads[n].abs().sum() > 0]
     assert any(n.startswith("graphone.") for n in moved)
-    assert any(n.startswith("task.oscc.aux_ar_cls") for n in moved)
+    # each bank's task reaches the novel head through its aux classifier
+    for t in NOVEL[novel][0]:
+        assert any(n.startswith(f"task.{novel}.aux_{t}_cls") for n in moved)
     assert any(n.startswith("temporal_graph.") for n in moved) == backprop
 
 
-@pytest.mark.parametrize("backprop,freeze", [(True, True), (False, True),
-                                             (True, False)])
-def test_three_steps_match_jax(backprop, freeze):
-    (jsys, jgo, params, jb, jbatch), (tsys, tgo, tb, tbatch) = _setup(freeze)
+@pytest.mark.parametrize("novel,backprop,freeze", [
+    pytest.param("oscc", True, True, id="True-True"),
+    pytest.param("oscc", False, True, id="False-True"),
+    pytest.param("oscc", True, False, id="True-False"),
+    pytest.param("lta", False, True, id="lta-False-True")])
+def test_three_steps_match_jax(novel, backprop, freeze):
+    (jsys, jgo, params, jb, jbatch), (tsys, tgo, tb, tbatch) = _setup(
+        freeze, novel=novel)
+    active = (novel,)
     init = interop.from_flax(to_np(params))
     kw = dict(backprop_temporal_graph=backprop,
               temporal_graph_train_mode=False, late_fusion=True)
-    trainable = _trainable(backprop, freeze)
+    trainable = _trainable(backprop, freeze, novel)
     jo = jopt.adam(LR, 1e-5, trainable_mask=j_mask(trainable), impl="fused")
     jstate = jo.init(params)
-    jstep = jsys.make_egopack_train_step(jo, ACTIVE, jgo, **kw)
+    jstep = jsys.make_egopack_train_step(jo, active, jgo, **kw)
     to = topt.adam(LR, 1e-5, trainable_mask=topt.trainable_mask_fn(trainable),
                    impl="fused")
     tstate = to.init(tsys.params())
-    tstep = tsys.make_egopack_train_step(to, ACTIVE, tgo, **kw)
+    tstep = tsys.make_egopack_train_step(to, active, tgo, **kw)
     for k in range(3):
         params, jstate, jl = jstep(params, jstate, jb, jbatch,
                                    jax.random.PRNGKey(k), LR)
@@ -101,11 +126,30 @@ def test_three_steps_match_jax(backprop, freeze):
         close(p, final[name], err_msg=name, **MODULE_TOL)
         if interop.top_level_key(name) in trainable:
             assert not torch.equal(p.detach(), init[name]), name
-        else:
+        else:  # the backbone and the other heads, aux classifiers too
             assert torch.equal(p.detach(), init[name]), name
     for t in tb:  # the banks passed in never change
         np.testing.assert_array_equal(tb[t].values.numpy(),
                                       np.asarray(jb[t].values))
+
+
+def test_eval_mode_backbone_ignores_the_dropout_generator():
+    """``temporal_graph_train_mode=False`` (novel LTA's published setting):
+    with the pooling's dropout at 0.5, two generators give the same
+    backbone features in eval mode, and other ones in train mode."""
+    system = tentry.build_system(HIDDEN, HIDDEN, FEAT, tp_dropout=0.5,
+                                 phase2=True, device="cpu")
+    system.init_params(torch.Generator().manual_seed(0))
+    _, batch = batches(jax_system()[0], seed=2)
+
+    def features(train, seed):
+        with torch.no_grad():
+            return system.backbone_features(
+                batch["lta"], "lta", train,
+                torch.Generator().manual_seed(seed))[0]
+
+    assert torch.equal(features(False, 1), features(False, 2))
+    assert not torch.equal(features(True, 1), features(True, 2))
 
 
 def test_multi_step_matches_single_steps():

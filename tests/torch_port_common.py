@@ -14,7 +14,10 @@ import __graft_entry__ as ge
 from egopack_torch import entry as tentry
 from egopack_torch import interop
 from egopack_torch.models import graphone as tgraphone
+from egopack_torch.models.heads import RecognitionTask
+from egopack_torch.train.system import MultiTaskSystem
 from egopack_tpu.models import graphone as jgraphone
+from egopack_tpu.train.driver import PHASE2_AUX as PUBLISHED_AUX
 
 FEAT, HIDDEN, BATCH = 16, 32, 2
 ACTIVE = ("ar", "lta", "pnr")
@@ -84,33 +87,51 @@ def torch_banks(banks):
             for t, (v, m) in banks.items()}
 
 
-def jax_phase2(banks, k=8, freeze=True, residual=False):
+def jax_phase2(banks, k=8, freeze=True, residual=False, head_aux=None):
     """The JAX phase-2 system at the small width (dropout off), its
-    GraphONE over the aux tasks, and the params with the ``graphone``
-    subtree (and ``graphone_banks`` when not frozen)."""
+    GraphONE over the banks' tasks, and the params with the ``graphone``
+    subtree (and ``graphone_banks`` when not frozen). ``head_aux`` gives
+    each head's aux classifier set (default: the entry's narrow sets;
+    :data:`PUBLISHED_AUX` for the published ones)."""
     system = ge._build_system(HIDDEN, HIDDEN, FEAT, phase2=True,
                               tp_dropout=0.0)
+    if head_aux is not None:
+        for name, setup in system.tasks.items():
+            setup.head = setup.head.clone(aux_tasks=tuple(head_aux[name]))
     params = system.init_params(jax.random.PRNGKey(0), FEAT)
-    graphone = jgraphone.GraphONE(task_labels=AUX, features_size=HIDDEN,
+    tasks = tuple(banks)
+    graphone = jgraphone.GraphONE(task_labels=tasks, features_size=HIDDEN,
                                   hidden_size=HIDDEN, k=k, depth=3,
                                   residual=residual, freeze=freeze,
                                   knn_impl="xla")
     jb = jax_banks(banks)
-    feats0 = {t: jnp.zeros((4, HIDDEN)) for t in AUX}
+    feats0 = {t: jnp.zeros((4, HIDDEN)) for t in tasks}
     params["graphone"] = graphone.init(jax.random.PRNGKey(2), feats0, jb,
                                        method="interact")["params"]
     if not freeze:
-        params["graphone_banks"] = {t: jnp.array(jb[t].values) for t in AUX}
+        params["graphone_banks"] = {t: jnp.array(jb[t].values)
+                                    for t in tasks}
     return system, graphone, params, jb
 
 
-def torch_phase2(jax_params, banks, k=8, freeze=True, residual=False):
+def torch_phase2(jax_params, banks, k=8, freeze=True, residual=False,
+                 head_aux=None):
     """The port's phase-2 system on the CPU with the JAX weights, its
-    GraphONE attached, and the banks."""
+    GraphONE over the banks' tasks attached, and the banks; ``head_aux`` as
+    for :func:`jax_phase2`."""
     system = tentry.build_system(HIDDEN, HIDDEN, FEAT, tp_dropout=0.0,
                                  phase2=True, device="cpu")
+    if head_aux is not None:
+        for name, setup in system.tasks.items():
+            extra = ({"heads": (tentry.N_VERBS, tentry.N_NOUNS)}
+                     if isinstance(setup.head, RecognitionTask) else {})
+            setup.head = type(setup.head)(name, HIDDEN, HIDDEN,
+                                          aux_tasks=head_aux[name],
+                                          device="cpu", **extra)
+        system = MultiTaskSystem(system.backbone, system.tasks,
+                                 device="cpu")
     tb = torch_banks(banks)
-    graphone = tgraphone.GraphONE(AUX, features_size=HIDDEN,
+    graphone = tgraphone.GraphONE(tuple(banks), features_size=HIDDEN,
                                   hidden_size=HIDDEN, k=k, depth=3,
                                   residual=residual, freeze=freeze,
                                   device="cpu")
