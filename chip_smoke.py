@@ -21,7 +21,8 @@ Phases, any failure exits non-zero and prints no result:
 3. train   - the phase-1 AR+LTA+PNR train step at full width (hidden 1024,
              feat 1536, batch 16 per task, fused Adam, dropout 0.5 from a
              seeded generator): 3 warm-up + 20 timed steps. Launch counts are
-             zeroed just before and read just after. Finite losses, moved
+             zeroed just before and read just after (two sum_squares
+             launches a step: the norms). Finite losses, moved
              trainable parameters, an unchanged OSCC head. Then one step with
              dropout off against the same step with the plain Adam, and a
              small model on the card against the same model on the CPU, and
@@ -85,7 +86,8 @@ Phases, any failure exits non-zero and prints no result:
              built on the card from 8 seeded AR batches of 256 clips, then 3
              warm-up + 20 timed steps with the kNN kernel and fused Adam
              (counts zeroed just before, read just after: one launch of each
-             per step). Finite losses, moved trainable leaves, the other
+             per step, two of sum_squares). Finite losses, moved trainable
+             leaves, the other
              heads and the banks bit-identical. One step with the plain kNN
              from the same state, the eval step, a checkpoint of the state
              written in the background while 3 more fused-Adam steps run
@@ -118,7 +120,12 @@ Phases, any failure exits non-zero and prints no result:
              (timed only; the port never calls it):
              ``torch.optim.Adam(fused=True)`` and ``torch.topk`` over the
              masked ``1 - bmm``. The card's clocks, power and temperature
-             are read beside each kNN window.
+             are read beside each kNN window. Then the norms' sum-of-squares
+             kernel at each benchmark cell's full-width leaf set (gradients
+             and parameters), as the step calls it: against a float64 sum
+             (rtol 1e-6), two launches a call, timed twice in turns with the
+             plain chain and ``torch._foreach_norm`` (yardstick only), beside
+             its bytes bound.
 14. multigpu - run after tools. (a) The phase-1 CLI of the driver phase
              with ``parallel.multihost=True``: ``torch.distributed`` on NCCL
              at world size 1, the grid and its groups made; its epoch
@@ -162,6 +169,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import egopack_torch
 from egopack_torch import aggregate, interop
+from egopack_torch import entry as port_entry
 from egopack_torch.data.synthetic import generate_ego4d_fixture
 from egopack_torch.device import make_generator
 from egopack_torch.entry import (ACTIVE, AUX_TASKS, N_NOUNS, N_VERBS,
@@ -172,16 +180,21 @@ from egopack_torch.evaluate import main as evaluate_main
 from egopack_torch.io import native
 from egopack_torch.main_egopack import main as egopack_main
 from egopack_torch.main_temporal import main as train_main
+from egopack_torch.models.graphone import GraphONE
 from egopack_torch.models.pooling import ENCODINGS, TRNPooling
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
+from egopack_torch.ops import sum_squares as tss
 from egopack_torch.ops.knn import prototype_topk
+from egopack_torch.parallel.collectives import SINGLE
 from egopack_torch.parallel.launch import check_ranks, free_port, run_ranks
 from egopack_torch.predict import main as predict_main
 from egopack_torch.profiling import (busy_us, device_events, fp32_peak,
                                      hbm_bytes_per_s, mean_us, tf32_peak,
                                      union_us)
+from egopack_torch.train import driver
 from egopack_torch.train import optim as topt
+from egopack_torch.train import system as tsystem
 from egopack_torch.train.checkpoint import (latest_state, load_artifact,
                                             restore_state, save_state,
                                             wait_for_saves)
@@ -407,6 +420,7 @@ def phase_train(dev, card: str):
     mtl = build_mtl_step(BATCH, FEAT, HIDDEN, impl="fused", device=dev)
     before = snapshot(mtl.system)
     tfa.fused_adam.launches = 0
+    tss.sum_squares.launches = 0
     for _ in range(WARMUP):
         mtl(LR)
     torch.cuda.synchronize()
@@ -418,10 +432,13 @@ def phase_train(dev, card: str):
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = tfa.fused_adam.launches
+    norm_launches = tss.sum_squares.launches
     step_ms = start.elapsed_time(end) / TIMED
     steps = WARMUP + TIMED
     require(launches >= steps,
             f"fused_adam launched {launches} times in {steps} steps")
+    require(norm_launches == 2 * steps,
+            f"sum_squares launched {norm_launches} times in {steps} steps")
     for i, l in enumerate(logs):
         for k, v in l.items():
             require(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
@@ -435,7 +452,8 @@ def phase_train(dev, card: str):
         f"{HIDDEN}, fused Adam; last logs {json.dumps(last)}")
     log(f"train: {step_ms!r} ms/step (CUDA events over {TIMED} steps; host "
         f"{host_s / TIMED * 1e3!r} ms/step) on {card}")
-    log(f"train: fused_adam launches {launches} in {steps} steps")
+    log(f"train: fused_adam launches {launches}, sum_squares launches "
+        f"{norm_launches} in {steps} steps")
 
     # one step, dropout off, fused kernel against the plain Adam
     mtl.system.backbone.pooling.dropout = 0.0
@@ -459,7 +477,7 @@ def phase_train(dev, card: str):
         err = max(err, max_err(a, b))
     log(f"train: one step dropout off, fused vs plain Adam: max_abs_err "
         f"{err!r}")
-    return mtl, step_ms, launches, steps
+    return mtl, step_ms, launches, steps, norm_launches
 
 
 def phase_small_vs_cpu(dev) -> None:
@@ -894,6 +912,7 @@ def phase_egopack(mtl, loaded, dev, card: str):
 
     tfa.fused_adam.launches = 0
     tkt.cosine_knn.launches = 0
+    tss.sum_squares.launches = 0
     for _ in range(WARMUP):
         ego(LR_EGO)
     torch.cuda.synchronize()
@@ -906,11 +925,14 @@ def phase_egopack(mtl, loaded, dev, card: str):
     host_s = time.perf_counter() - t0
     knn_launches = tkt.cosine_knn.launches
     adam_launches = tfa.fused_adam.launches
+    norm_launches = tss.sum_squares.launches
     steps = WARMUP + TIMED
     step_ms = start.elapsed_time(end) / TIMED
     require(knn_launches == steps and adam_launches == steps,
             f"{knn_launches} kNN and {adam_launches} fused_adam launches in "
             f"{steps} steps, not one each per step")
+    require(norm_launches == 2 * steps,
+            f"sum_squares launched {norm_launches} times in {steps} steps")
     for i, l in enumerate(logs):
         for k, v in l.items():
             require(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
@@ -929,7 +951,8 @@ def phase_egopack(mtl, loaded, dev, card: str):
     log(f"egopack: {step_ms!r} ms/step (CUDA events over {TIMED} steps; host "
         f"{host_s / TIMED * 1e3!r} ms/step) on {card}")
     log(f"egopack: cosine_knn launches {knn_launches}, fused_adam launches "
-        f"{adam_launches} in {steps} steps")
+        f"{adam_launches}, sum_squares launches {norm_launches} in {steps} "
+        f"steps")
 
     # one step with the plain kNN from the same state
     feats = secondary_features(ego)
@@ -982,7 +1005,7 @@ def phase_egopack(mtl, loaded, dev, card: str):
         f"{tuple(logits.shape)} finite, post features {tuple(post.shape)}")
     check_async_snapshot(ego)
     feats_m = (feats, values, masks)
-    return ego, step_ms, knn_launches, steps, feats_m
+    return ego, step_ms, knn_launches, steps, feats_m, norm_launches
 
 
 def check_async_snapshot(ego) -> None:
@@ -1129,6 +1152,125 @@ def phase_knn_numbers(main_inputs, dev, card: str) -> dict:
         out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                     "library_ms": ms["library"], "bound_ms": bound,
                     "bound_by": by}
+    return out
+
+
+# the benchmark's cells: (novel task, GraphONE's aux tasks, the heads' aux
+# sets, trainable subtrees); phase 1 has no novel task
+NORM_CELLS = {
+    "mtl-step": (None, None, None,
+                 ["temporal_graph"] + [CKPT_KEYS[t] for t in ACTIVE]),
+    "novel-oscc-step": ("oscc", AUX_TASKS, port_entry.PHASE2_AUX,
+                        ["temporal_graph", CKPT_KEYS["oscc"], "graphone"]),
+    "novel-lta-step": ("lta", ("ar", "oscc", "pnr"), driver.PHASE2_AUX,
+                       [CKPT_KEYS["lta"], "graphone"]),
+}
+NORM_PASSES = ("sumsq_partial", "sumsq_finish")  # the kernels of one call
+
+
+def cell_norm_sets(cell: str, dev):
+    """The step's global-norm sets of a benchmark cell's model at full
+    width: ``{"grad_norm": gradients of the trainable leaves, "param_norm":
+    every parameter}``, all drawn from a seeded normal."""
+    novel, aux, head_aux, trainable = NORM_CELLS[cell]
+    if novel is None:
+        system = build_system(HIDDEN, HIDDEN, FEAT, device=dev)
+    else:
+        # build_system gives every phase-2 head PHASE2_AUX's aux set
+        saved, port_entry.PHASE2_AUX = port_entry.PHASE2_AUX, head_aux
+        try:
+            system = build_system(HIDDEN, HIDDEN, FEAT, phase2=True,
+                                  device=dev)
+        finally:
+            port_entry.PHASE2_AUX = saved
+        system.attach_graphone(GraphONE(aux, features_size=HIDDEN,
+                                        hidden_size=HIDDEN, k=4, depth=3,
+                                        residual=True, device=dev))
+    params = system.params()
+    gen = make_generator(11, dev)
+    with torch.no_grad():
+        for p in params.values():
+            p.normal_(generator=gen)
+    on = topt.trainable_mask_fn(trainable)(params)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev)
+             for n, p in params.items() if on[n]}
+    return {"grad_norm": grads, "param_norm": params}
+
+
+def phase_norms(dev, card: str) -> dict:
+    """The norms' kernel at each benchmark cell's leaf set, as the step
+    calls it (``system._norms``, one rank): against a float64 sum (rtol
+    1e-6), its launches a call, then timed twice in turns with the plain
+    chain it replaced and ``torch._foreach_norm`` (yardstick only; the port
+    never calls it), the kernel by its two passes' mean durations, the
+    others by ``device_ms``; the bound is every gradient and parameter read
+    once at the memory rate."""
+    out = {}
+    for cell in NORM_CELLS:
+        sets = cell_norm_sets(cell, dev)
+        leaves = [t for named in sets.values() for t in named.values()]
+        slots = [[k] for k, named in enumerate(sets.values()) for _ in named]
+        numel = sum(t.numel() for t in leaves)
+
+        def kernel():
+            with torch.no_grad():
+                return tsystem._norms(sets, (), SINGLE)
+
+        def library():
+            with torch.no_grad():
+                return [torch.linalg.vector_norm(torch.stack(
+                    torch._foreach_norm(list(named.values()))))
+                    for named in sets.values()]
+
+        arms = {"kernel": kernel,
+                "plain": lambda: tss.sum_squares_reference(
+                    leaves, slots, len(sets), roots=True),
+                "library": library}
+        launches0 = tss.sum_squares.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        per_call = tss.sum_squares.launches - launches0
+        require(per_call == 2, f"{cell}: {per_call} launches a call, not 2")
+        worst = 0.0
+        for key, named in sets.items():
+            with torch.no_grad():
+                want = torch.sqrt(sum(t.double().square().sum()
+                                      for t in named.values()))
+            rel = abs(float(got[key]) - float(want)) / float(want)
+            require(rel <= 1e-6, f"{cell} {key}: {float(got[key])!r} against "
+                                 f"float64 {float(want)!r}")
+            worst = max(worst, rel)
+        runs = {a: [] for a in arms}
+        counts = {a: [] for a in arms}
+        passes = {n: [] for n in NORM_PASSES}
+        order = ("plain", "kernel", "library")
+        for seq in (order, order[::-1]):
+            for a in seq:
+                if a == "kernel":
+                    parts = {}
+                    runs[a].append(launch_ms(arms[a], 30, NORM_PASSES, parts,
+                                             counts[a]))
+                    for n in NORM_PASSES:
+                        passes[n].append(parts[n])
+                else:
+                    runs[a].append(device_ms(arms[a], 30, counts[a]))
+        ms = {a: sum(v) / len(v) for a, v in runs.items()}
+        passes = {n: sum(v) / len(v) for n, v in passes.items()}
+        bound = 4 * numel / hbm_bytes_per_s(card) * 1e3
+        log(f"numbers: sum_squares at {cell}'s leaf set ({len(leaves)} "
+            f"leaves, {numel} elements; {per_call} launches a call; largest "
+            f"relative gap to float64 {worst!r}): device ms per call "
+            f"(torch.profiler; the kernel by its passes' mean durations) "
+            f"kernel {ms['kernel']!r}, plain chain {ms['plain']!r}, "
+            f"torch._foreach_norm {ms['library']!r}; bound {bound!r} (4 B an "
+            f"element at {hbm_bytes_per_s(card):.3g} B/s), "
+            f"{100 * bound / ms['kernel']:.1f}% of it; runs "
+            f"{json.dumps(runs)}; the kernel's passes {json.dumps(passes)}; "
+            f"device events in each profiled window "
+            f"{json.dumps(counts)}; on {card}")
+        out[cell] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "library_ms": ms["library"], "bound_ms": bound,
+                     "bound_by": "bytes", "max_rel_err": worst}
     return out
 
 
@@ -1897,13 +2039,15 @@ def build_kernels() -> None:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         jobs = {name: pool.submit(timed, load) for name, load in
                 (("fused_adam", tfa.load_library),
-                 ("knn_topk", tkt.load_library))}
+                 ("knn_topk", tkt.load_library),
+                 ("sum_squares", tss.load_library))}
         times = {name: job.result() for name, job in jobs.items()}
     log(f"build: fused_adam.cu {times['fused_adam']:.1f} s, knn_topk.cu "
-        f"{times['knn_topk']:.1f} s with nvcc for sm_90a, in parallel; "
+        f"{times['knn_topk']:.1f} s, sum_squares.cu "
+        f"{times['sum_squares']:.1f} s with nvcc for sm_90a, in parallel; "
         f"{time.perf_counter() - t0:.1f} s in all")
 
 
@@ -1914,7 +2058,7 @@ def run(dev, card: str):
 
     adam_err = phase_kernels(dev)
     knn_err_max, knn_swaps = phase_knn_kernel(dev)
-    mtl, step_ms, launches, steps = phase_train(dev, card)
+    mtl, step_ms, launches, steps, norm_train = phase_train(dev, card)
     phase_small_vs_cpu(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         drv = phase_driver(tmp, card)
@@ -1926,7 +2070,7 @@ def run(dev, card: str):
         pred = phase_predict(tmp, drv, ego_drv, cold)
         phase_tools(tmp)
         mg = phase_multigpu(tmp, drv, ego_drv, card)
-    ego, ego_ms, knn_launches, ego_steps, main_knn = phase_egopack(
+    ego, ego_ms, knn_launches, ego_steps, main_knn, norm_ego = phase_egopack(
         mtl, drv.pop("state"), dev, card)
     phase_small_egopack_vs_cpu(dev)
     torch.cuda.empty_cache()
@@ -1936,6 +2080,7 @@ def run(dev, card: str):
     nums = phase_numbers(mtl, dev, card)
     knn_nums = phase_knn_numbers(main_knn, dev, card)
     del ego
+    norm_nums = phase_norms(dev, card)
 
     # launches on each path, counted from 0 just before it
     kernels = [{
@@ -1970,6 +2115,15 @@ def run(dev, card: str):
                              "predict": pred["knn_launches"],
                              "multigpu_egopack_tp2_by_rank":
                                  mg["ego_tp2"]["knn"]},
+    }, {
+        "name": "sum_squares", "route": "cuda",
+        "source": "egopack_torch/ops/csrc/sum_squares.cu",
+        "replaces": None, "launches": norm_ego,
+        "max_rel_err": max(n["max_rel_err"] for n in norm_nums.values()),
+        **{k: v for k, v in norm_nums["novel-oscc-step"].items()
+           if k != "max_rel_err"},
+        "by_cell": norm_nums,
+        "launches_by_path": {"train": norm_train, "egopack": norm_ego},
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
@@ -1994,7 +2148,9 @@ def run(dev, card: str):
                f"with model 2, {mg['ego_tp2']['adam']} in phase 2 with "
                f"model 2, where cosine_knn ran {mg['ego_tp2']['knn']} times "
                f"by rank on {mg['ego_tp2']['bank_rows']} of "
-               f"{mg['ego_tp2']['bank_rows_full']} bank rows a rank)")
+               f"{mg['ego_tp2']['bank_rows_full']} bank rows a rank; "
+               f"sum_squares {norm_train} launches in {steps} phase-1 steps, "
+               f"{norm_ego} in {ego_steps} phase-2 steps)")
     return kernels, summary
 
 

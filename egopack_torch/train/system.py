@@ -34,7 +34,8 @@ from __future__ import annotations
 import functools
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Collection, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -47,7 +48,8 @@ from ..models.backbone import TemporalGraph
 from ..models.graphone import GraphONE, PrototypeBank
 from ..models.layers import GraphLayerNorm, ShardedGenerator
 from ..ops.losses import bce_with_logits, cross_entropy, masked_mean
-from ..parallel.collectives import all_reduce_
+from ..ops.sum_squares import sum_squares
+from ..parallel.collectives import Axis, all_reduce_
 from ..parallel.mesh import Mesh, gather_params
 from ..tracing import span
 from .optim import Adam, AdamState
@@ -94,28 +96,37 @@ def lta_full_adjacency(base_adj: torch.Tensor, y: torch.Tensor,
     return base_adj[None] | extra
 
 
-def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every tensor (optax.global_norm semantics)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
-
-
-def _sharded_norm(named: Dict[str, torch.Tensor], shards: Dict[str, int],
-                  mesh: Mesh) -> torch.Tensor:
-    """``_global_norm`` of tensors of which those named in ``shards`` hold
-    this rank's slice of a tensor split over the model axis: their squares
-    are summed over the axis, the replicated ones counted once."""
-    split = [t for n, t in named.items() if n in shards]
+def _norms(sets: Dict[str, Dict[str, torch.Tensor]], split: Collection[str],
+           axis: Axis) -> Logs:
+    """The L2 norm of each named set of tensors (``optax.global_norm``
+    semantics), all from one ``sum_squares`` call, which reads a tensor that
+    is in several sets once. A tensor whose name is in ``split`` holds this
+    rank's slice of a tensor split over ``axis``: its squares are summed
+    over the axis, the others counted once. With ``split`` empty (one rank,
+    or a grid that splits no parameter) no collective runs and the call
+    takes the square roots itself."""
+    n = len(sets)
+    index: Dict[int, int] = {}
+    leaves: List[torch.Tensor] = []
+    slots: List[List[int]] = []
+    for k, named in enumerate(sets.values()):
+        for name, t in named.items():
+            i = index.setdefault(id(t), len(leaves))
+            if i == len(leaves):
+                leaves.append(t)
+                slots.append([])
+            slots[i].append(k + n if name in split else k)
     if not split:
-        return _global_norm(list(named.values()))
-    sq = all_reduce_(sum(torch.sum(torch.square(t.float())) for t in split),
-                     mesh.model_axis)
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for n, t in named.items() if n not in shards) + sq)
+        out = sum_squares(leaves, slots, n, roots=True)
+    else:
+        sq = sum_squares(leaves, slots, 2 * n, roots=False)
+        out = torch.sqrt(sq[:n] + all_reduce_(sq[n:].clone(), axis))
+    return dict(zip(sets, out.unbind()))
 
 
 @functools.lru_cache(maxsize=8)
 def _layer_groups(names: Tuple[str, ...]) -> Dict[str, Tuple[str, ...]]:
-    """The subtrees of ``_subtree_norms`` over torch parameter names: the
+    """The subtrees of ``_subtree_sets`` over torch parameter names: the
     flax tree's first two levels, rebuilt through ``interop``'s name map. A
     top-level key whose children are all modules splits into one group per
     child (``temporal_graph/pooling``, ``temporal_graph/gn0``, ...); one with
@@ -134,23 +145,19 @@ def _layer_groups(names: Tuple[str, ...]) -> Dict[str, Tuple[str, ...]]:
     return {k: tuple(v) for k, v in groups.items()}
 
 
-def _subtree_norms(params: Dict[str, torch.Tensor],
-                   grads: Dict[str, torch.Tensor],
-                   norm: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
-                   ) -> Logs:
-    """Per-layer L2 norms of the gradients and the parameters, one scalar
-    per subtree of ``_layer_groups``, with JAX's keys
+def _subtree_sets(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The per-layer sets of ``_norms``: the gradients and the parameters of
+    each subtree of ``_layer_groups``, with JAX's keys
     (``grad_norm/temporal_graph/sage0``, ``param_norm/graphone``;
-    ``egopack_tpu/train/system.py:82-97``), each by ``norm`` over the
-    subtree's named tensors. JAX differentiates every leaf, so a subtree
-    outside the trainable set has a gradient norm of 0."""
-    out: Logs = {}
+    ``egopack_tpu/train/system.py:82-97``). JAX differentiates every leaf,
+    so a subtree outside the trainable set has an empty gradient set, whose
+    norm is 0."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, members in _layer_groups(tuple(params)).items():
-        g = {n: grads[n] for n in members if n in grads}
-        out[f"grad_norm/{key}"] = (norm(g) if g else
-                                   params[members[0]].new_zeros(()))
-        out[f"param_norm/{key}"] = norm(
-            {n: params[n].detach() for n in members})
+        out[f"grad_norm/{key}"] = {n: grads[n] for n in members if n in grads}
+        out[f"param_norm/{key}"] = {n: params[n] for n in members}
     return out
 
 
@@ -307,9 +314,6 @@ class MultiTaskSystem:
         """Every parameter at its full shape: split ones gathered over the
         model axis (a collective on a mesh; every rank calls it)."""
         return gather_params(self.params(), self.shards, self.mesh)
-
-    def _norm(self, named: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return _sharded_norm(named, self.shards, self.mesh)
 
     def sample_generator(self, generator: Optional[torch.Generator]):
         """``generator`` for this rank's block of a batch split over the
@@ -540,7 +544,8 @@ class MultiTaskSystem:
                          per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
         ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
-        adds ``_subtree_norms`` to every step's logs. On a data axis the
+        adds the norms of ``_subtree_sets`` to every step's logs, from the
+        same ``_norms`` call as the global ones. On a data axis the
         gradients and the logged losses are summed over it (each rank's
         loss is its share of the global one, see
         ``ops.losses.masked_mean``).
@@ -584,12 +589,12 @@ class MultiTaskSystem:
                 named = dict(zip(names, grads))
                 if log_norms or per_layer:
                     with span("egopack.norms"):
-                        if log_norms:
-                            logs["grad_norm"] = self._norm(named)
-                            logs["param_norm"] = self._norm(params)
+                        sets = ({"grad_norm": named, "param_norm": params}
+                                if log_norms else {})
                         if per_layer:
-                            logs.update(_subtree_norms(params, named,
-                                                       self._norm))
+                            sets.update(_subtree_sets(params, named))
+                        logs.update(_norms(sets, self.shards,
+                                           self.mesh.model_axis))
             return named, logs
 
         graphs = StepGraphs(grads_and_logs,
@@ -650,7 +655,7 @@ class MultiTaskSystem:
         moments update in place; logs are device scalars (no host sync).
         ``log_norms=False`` drops the global grad and param norms;
         ``per_layer_norms`` adds one of each per subtree
-        (``_subtree_norms``)."""
+        (``_subtree_sets``)."""
         inner = self._make_inner_step(optimizer,
                                       self._make_phase1_loss_fn(active),
                                       per_layer_norms)

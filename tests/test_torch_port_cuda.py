@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (fused Adam, cosine k-NN) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (fused Adam, cosine k-NN, the norms' sum of
+squares) against their plain PyTorch versions or a float64 sum, on the
+card.
 
 Skips on a host without CUDA: the kernel has no CPU mode. This file imports
 only torch and the port, so it runs where JAX is not installed:
@@ -8,8 +9,22 @@ only torch and the port, so it runs where JAX is not installed:
 import pytest
 import torch
 
+from egopack_torch import entry
+from egopack_torch.models.graphone import GraphONE
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
+from egopack_torch.ops import sum_squares as tss
+from egopack_torch.parallel.collectives import SINGLE
+from egopack_torch.train import driver
+from egopack_torch.train import optim as topt
+from egopack_torch.train import system as tsystem
+from egopack_torch.train.system import CKPT_KEYS
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
 
 
 @pytest.mark.cuda
@@ -91,3 +106,128 @@ def test_knn_kernel_matches_plain_version_on_the_card(t, m, p, f, valid, k,
     swaps = tkt.near_tie_swaps(idx, dist, ref_idx, ref_dist, atol=1e-5)
     assert not torch.isnan(dist).any()
     print(f"near-tie swaps {swaps}")
+
+
+# ---------------- the norms' sum-of-squares kernel ----------------
+
+FEAT, HIDDEN = 1536, 1024
+# (every leaf, trainable leaves) of each cell's model
+CELL_LEAVES = {"mtl-step": (69, 61), "novel-oscc-step": (101, 53),
+               "novel-lta-step": (111, 28)}
+
+
+def _cell_params(cell, dev, monkeypatch):
+    """Every parameter of a cell's model at full width, by its name in
+    ``MultiTaskSystem.params()``, drawn from a seeded normal, and the names
+    that train. ``mtl-step``: phase 1, the backbone and the AR, LTA and PNR
+    heads train. ``novel-oscc-step``: the heads' aux sets of
+    ``entry.PHASE2_AUX``, GraphONE (k 4, depth 3, residual) over AR, LTA and
+    PNR; the backbone, the OSCC head and GraphONE train.
+    ``novel-lta-step``: the published aux sets (``driver.PHASE2_AUX``),
+    GraphONE over AR, OSCC and PNR; the LTA head and GraphONE train."""
+    if cell == "mtl-step":
+        system = entry.build_system(HIDDEN, HIDDEN, FEAT, device=dev)
+        trainable = ["temporal_graph"] + [CKPT_KEYS[t] for t in entry.ACTIVE]
+    else:
+        novel, aux = {"novel-oscc-step": ("oscc", entry.AUX_TASKS),
+                      "novel-lta-step": ("lta", ("ar", "oscc", "pnr"))}[cell]
+        if novel == "lta":
+            monkeypatch.setattr(entry, "PHASE2_AUX", driver.PHASE2_AUX)
+        system = entry.build_system(HIDDEN, HIDDEN, FEAT, phase2=True,
+                                    device=dev)
+        system.attach_graphone(GraphONE(aux, features_size=HIDDEN,
+                                        hidden_size=HIDDEN, k=4, depth=3,
+                                        residual=True, device=dev))
+        trainable = [CKPT_KEYS[novel], "graphone"] + (
+            ["temporal_graph"] if novel == "oscc" else [])
+    params = system.params()
+    gen = torch.Generator(device=dev).manual_seed(len(params))
+    with torch.no_grad():
+        for p in params.values():
+            p.normal_(generator=gen)
+    names = [n for n, on in topt.trainable_mask_fn(trainable)(params).items()
+             if on]
+    assert (len(params), len(names)) == CELL_LEAVES[cell]
+    return params, names
+
+
+def _f64_norms(sets, dev):
+    """Each set's L2 norm, summed in float64."""
+    return {k: torch.sqrt(sum((t.double().square().sum()
+                               for t in named.values()),
+                              torch.zeros((), dtype=torch.float64,
+                                          device=dev)))
+            for k, named in sets.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("cell", sorted(CELL_LEAVES))
+def test_norms_kernel_on_each_cells_leaf_set(cell, split, monkeypatch):
+    """The step's norms through the kernel (``system._norms``: the global
+    ones and the per-layer ones of ``_subtree_sets``, in one call) against a
+    float64 sum at rtol 1e-6, over a cell's full-width gradients and
+    parameters; ``split``: every other leaf's squares summed over a
+    one-rank axis, through the kernel's split slots. Two launches a call;
+    two calls equal bit for bit; a call captured in a CUDA graph and
+    replayed equals the eager call bit for bit."""
+    dev = _card()
+    params, names = _cell_params(cell, dev, monkeypatch)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grads = {n: torch.randn(params[n].shape, device=dev, generator=gen)
+             for n in names}
+    sets = {"grad_norm": grads, "param_norm": params,
+            **tsystem._subtree_sets(params, grads)}
+    shards = set(list(params)[::2]) if split else set()
+
+    def norms():
+        with torch.no_grad():
+            return tsystem._norms(sets, shards, SINGLE)
+
+    launches = tss.sum_squares.launches
+    eager = norms()
+    again = norms()
+    torch.cuda.synchronize()
+    assert tss.sum_squares.launches - launches == 4
+    ref = _f64_norms(sets, dev)
+    assert sorted(eager) == sorted(ref)
+    for k, v in ref.items():
+        assert eager[k].dtype == torch.float32 and eager[k].shape == ()
+        torch.testing.assert_close(eager[k].double(), v, rtol=1e-6, atol=0,
+                                   msg=lambda m: f"{k}: {m}")
+        assert torch.equal(eager[k], again[k]), k
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = norms()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, v in eager.items():
+        assert torch.equal(captured[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roots", [False, True])
+def test_sum_squares_kernel_on_ragged_and_unaligned_leaves(roots):
+    """Leaves of 0, 1, 3 and 4k+1 elements, several chunks long, and views
+    whose base lies 4, 8 or 12 bytes past a 16-byte boundary, in slots that
+    share leaves, with a slot no leaf names: against a float64 sum at rtol
+    1e-6."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.randn(3 * 8192 + 40, device=dev, generator=gen)
+    leaves = [torch.randn(n, device=dev, generator=gen)
+              for n in (1, 3, 4 * 2048 + 1, 4 * 5000 + 1, 8192, 0)]
+    leaves += [buf[1:], buf[2:8192 + 7], buf[3:6], buf[5:6], buf[7:]]
+    assert all(t.data_ptr() % 16 for t in leaves[6:])
+    slots = [[i % 3, 3] if i % 2 else [i % 3] for i in range(len(leaves))]
+    out = tss.sum_squares(leaves, slots, 5, roots=roots)
+    torch.cuda.synchronize()
+    sums = [t.double().square().sum() for t in leaves]
+    for s in range(5):
+        want = sum((x for x, named in zip(sums, slots) if s in named),
+                   torch.zeros((), dtype=torch.float64, device=dev))
+        want = want.sqrt() if roots else want
+        torch.testing.assert_close(out[s].double(), want, rtol=1e-6, atol=0,
+                                   msg=lambda m: f"slot {s}: {m}")
+    assert float(out[4]) == 0.0

@@ -21,6 +21,7 @@ from egopack_torch.models import graphone as graphone_module
 from egopack_torch.models.graphone import GraphONE
 from egopack_torch.ops import fused_adam as tfa
 from egopack_torch.ops import knn_topk as tkt
+from egopack_torch.ops import sum_squares as tss
 from egopack_torch.parallel.mesh import Mesh
 from egopack_torch.train import optim as topt
 from egopack_torch.train import step_graph
@@ -399,11 +400,14 @@ def test_replayed_steps_equal_eager_ones_on_the_card(monkeypatch, phase):
     _assert_equal_runs(eager, again)  # eager steps repeat bit for bit
     tracing.reset()
     knn0, adam0 = tkt.cosine_knn.launches, tfa.fused_adam.launches
+    norms0 = tss.sum_squares.launches
     captured = StepGraphs.captures
     graphed = _run(phase, dev, monkeypatch)
     torch.cuda.synchronize()
     assert StepGraphs.captures - captured == 1
     assert tfa.fused_adam.launches - adam0 == STEPS
+    # the global and per-layer norms: one call, two launches a step
+    assert tss.sum_squares.launches - norms0 == 2 * STEPS
     assert tkt.cosine_knn.launches - knn0 == (STEPS if phase == 2 else 0)
     assert _span_count("egopack.step") == STEPS
     assert _span_count("egopack.replay") == STEPS - eager_calls
