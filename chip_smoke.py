@@ -198,6 +198,7 @@ from egopack_torch.train import system as tsystem
 from egopack_torch.train.checkpoint import (latest_state, load_artifact,
                                             restore_state, save_state,
                                             wait_for_saves)
+from egopack_torch.train.step_graph import StepGraphs
 from egopack_torch.train.system import CKPT_KEYS
 
 HERE = Path(__file__).resolve().parent
@@ -549,9 +550,10 @@ def epoch_ms(stats) -> tuple:
 
 
 def phase_driver(tmp: str, card: str) -> dict:
-    """The phase-1 CLI at full width; returns the artifact's torch state,
-    fused_adam launches, optimizer steps, ms per step over epochs 2-3, the
-    fixture's root and the per-epoch train records."""
+    """The phase-1 CLI at full width (``steps_per_call`` 4, the config's):
+    its one step signature captured once; returns the artifact's torch
+    state, fused_adam launches, optimizer steps, ms per step over epochs
+    2-3, the fixture's root and the per-epoch train records."""
     t0 = time.perf_counter()
     root = generate_ego4d_fixture(f"{tmp}/ego4d", feature_dim=FEAT,
                                   n_videos=DRIVER_VIDEOS, n_verbs=N_VERBS,
@@ -562,11 +564,17 @@ def phase_driver(tmp: str, card: str) -> dict:
         f"({time.perf_counter() - t0:.1f} s)")
     tfa.fused_adam.launches = 0
     calls0 = dict(native.PATH_CALLS)
+    captures0 = StepGraphs.captures
     t0 = time.perf_counter()
     result = train_main(driver_overrides(root, tmp, DRIVER_EPOCHS))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = tfa.fused_adam.launches
+    captures = StepGraphs.captures - captures0
+    # one signature: batches of one shape, the global norms on every step
+    require(captures == 1, f"the driver captured {captures} step graphs")
+    log(f"driver: {captures} capture of the train step's graph "
+        "(StepGraphs.captures) for its one signature")
     stats = result["epochs"]
     steps = sum(s["steps"] for s in stats)
     require([s["epoch"] for s in stats] == list(range(1, DRIVER_EPOCHS + 1)),

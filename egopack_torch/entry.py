@@ -10,8 +10,9 @@ seed exactly as the JAX entry makes them, or on the card
 (``device_batches``). ``build_egopack_step`` assembles the novel-OSCC
 phase-2 path as ``train/driver.py:train_egopack`` does: phase-2 system, the
 phase-1 state merged in, prototype banks, GraphONE, Adam over the phase-2
-trainable mask and the EgoPack step. With ``steps_per_call`` K > 1 both
-build the multi-step over K batch groups, as the bench does.
+trainable mask and the EgoPack step. With ``steps_per_call`` K > 1 a
+call of either step object runs the one train step over K batch groups in
+turn, as the bench does.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .models.heads import LTATask, OSCCTask, PNRTask, RecognitionTask
 from .models.pooling import TRNPooling
 from .train import optim as topt
 from .train.checkpoint import merge_loaded_params
-from .train.system import CKPT_KEYS, MultiTaskSystem, TaskSetup
+from .train.system import CKPT_KEYS, MultiTaskSystem, TaskSetup, norms_due
 
 N_VERBS, N_NOUNS = 115, 478  # Ego4D v1 FHO taxonomy sizes
 ACTIVE = ("ar", "lta", "pnr")
@@ -199,6 +200,23 @@ Batches = Union[Dict[str, Dict[str, torch.Tensor]],
                 List[Dict[str, Dict[str, torch.Tensor]]]]
 
 
+def _run_groups(batches: Batches, log_norms,
+                call: Callable[..., Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """``call(group, log_norms)`` on one batch group, with the step's own
+    ``log_norms``; on a list of K groups, K steps in turn, their logs
+    stacked on a leading K axis. Under ``log_norms="last"`` only the last
+    step logs the global norms, as unstacked scalars."""
+    if not isinstance(batches, list):
+        return call(batches, None)
+    k = len(batches)
+    steps = [call(b, norms_due(log_norms, i, k, k))
+             for i, b in enumerate(batches)]
+    logs = {key: torch.stack([l[key] for l in steps]) for key in steps[0]}
+    logs.update({key: v for key, v in steps[-1].items() if key not in logs})
+    return logs
+
+
 @dataclass
 class MTLStep:
     system: MultiTaskSystem
@@ -207,9 +225,12 @@ class MTLStep:
     step: Callable
     batches: Batches  # one group, or a list of steps_per_call groups
     generator: torch.Generator
+    log_norms: Any = True
 
     def __call__(self, lr: float = 1e-5) -> Dict[str, torch.Tensor]:
-        return self.step(self.opt_state, self.batches, self.generator, lr)
+        return _run_groups(self.batches, self.log_norms, lambda b, norms:
+                           self.step(self.opt_state, b, self.generator, lr,
+                                     log_norms=norms))
 
 
 def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
@@ -224,7 +245,7 @@ def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
     """The phase-1 AR+LTA+PNR train step at the bench configuration
     (hidden 1024, feat 1536, batch 16 per task by default), Adam(1e-5,
     wd 1e-5) over the driver's trainable mask. ``log_norms``: True, False
-    or ``"last"`` (the multi-step's last step only)."""
+    or ``"last"`` (the last of the ``steps_per_call`` steps only)."""
     dev = resolve_device(device)
     system = build_system(hidden, hidden, feat_dim, tp_dropout=tp_dropout,
                           compute_dtype=compute_dtype,
@@ -237,13 +258,11 @@ def build_mtl_step(batch: int = 16, feat_dim: int = 1536, hidden: int = 1024,
     optimizer = topt.adam(1e-5, 1e-5, trainable_mask=mask,
                           moments_dtype=moments_dtype, impl=impl)
     opt_state = optimizer.init(system.params())
-    step = (system.make_train_step_multi(optimizer, active, steps_per_call,
-                                         log_norms=log_norms)
-            if steps_per_call > 1 else
-            system.make_train_step(optimizer, active, log_norms=log_norms))
+    step = system.make_train_step(optimizer, active, log_norms=log_norms)
     batches = _batch_groups(system, batch, feat_dim, active, steps_per_call,
                             seed, device_batches)
-    return MTLStep(system, optimizer, opt_state, step, batches, generator)
+    return MTLStep(system, optimizer, opt_state, step, batches, generator,
+                   log_norms)
 
 
 # ---------------- phase 2: the novel-OSCC EgoPack step ----------------
@@ -285,10 +304,12 @@ class EgoPackStep:
     step: Callable
     batches: Batches
     generator: torch.Generator
+    log_norms: Any = True
 
     def __call__(self, lr: float = 1e-6) -> Dict[str, torch.Tensor]:
-        return self.step(self.opt_state, self.banks, self.batches,
-                         self.generator, lr)
+        return _run_groups(self.batches, self.log_norms, lambda b, norms:
+                           self.step(self.opt_state, self.banks, b,
+                                     self.generator, lr, log_norms=norms))
 
 
 def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
@@ -338,15 +359,11 @@ def build_egopack_step(batch: int = 16, feat_dim: int = 1536,
                           trainable_mask=topt.trainable_mask_fn(trainable),
                           moments_dtype=moments_dtype, impl="fused")
     opt_state = optimizer.init(system.params())
-    modes = dict(backprop_temporal_graph=True,
-                 temporal_graph_train_mode=False, late_fusion=True,
-                 log_norms=log_norms)
-    step = (system.make_egopack_train_step_multi(
-        optimizer, ("oscc",), graphone, steps_per_call, **modes)
-        if steps_per_call > 1 else
-        system.make_egopack_train_step(optimizer, ("oscc",), graphone,
-                                       **modes))
+    step = system.make_egopack_train_step(
+        optimizer, ("oscc",), graphone, backprop_temporal_graph=True,
+        temporal_graph_train_mode=False, late_fusion=True,
+        log_norms=log_norms)
     batches = _batch_groups(system, batch, feat_dim, ("oscc",),
                             steps_per_call, seed, device_batches)
     return EgoPackStep(system, graphone, banks, optimizer, opt_state, step,
-                       batches, generator)
+                       batches, generator, log_norms)

@@ -4,7 +4,9 @@
 
 Reference ``main_temporal.py:137-427`` and ``main_egopack.py:162-464`` on
 one card: the four task datasets and loaders, the multi-task system built
-from the config, multiloader epochs of ``steps_per_call`` step groups,
+from the config, multiloader epochs of one train step a batch group
+(``steps_per_call`` sets only which steps log the global norms under
+``log_grad_norms="last"`` and the ``profile_dir`` trace's window),
 per-epoch loss and norm records in ``metrics.jsonl``, validation meters,
 optional full-state checkpoints, and at the end the
 ``<prefix>_<sorted tasks>`` artifact in the JAX package's format. Phase 2
@@ -61,7 +63,7 @@ from . import optim as topt
 from .checkpoint import (latest_state, load_artifact, merge_loaded_params,
                          restore_state, save_artifact, save_state,
                          wait_for_saves)
-from .system import CKPT_KEYS, Banks, MultiTaskSystem, TaskSetup
+from .system import CKPT_KEYS, Banks, MultiTaskSystem, TaskSetup, norms_due
 
 logger = logging.getLogger(__name__)
 
@@ -444,16 +446,18 @@ def _save_checkpoint(ckpt_dir: str, epoch: int, system: MultiTaskSystem,
 
 
 def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
-                task_weights, active, step_fn: Callable,
-                multi_fn: Optional[Callable], lr_fn, run_gen,
+                task_weights, active, step_fn: Callable, lr_fn, run_gen,
                 run_logger, eval_steps, ckpt_dir: str, start_epoch: int,
                 should_validate: Callable[[int], bool],
                 banks: Optional[Banks] = None, force_all: bool = False,
                 hist_fn: Optional[Callable] = None):
-    """Multiloader epochs with ``steps_per_call`` groups and a one-by-one
-    tail, the per-epoch records, checkpoints and validation
-    (reference main_temporal.py:300-404, main_egopack.py:316-448). With
-    ``banks`` (phase 2) they are the steps' leading extra argument
+    """Multiloader epochs of one step a batch group, the per-epoch
+    records, checkpoints and validation (reference
+    main_temporal.py:300-404, main_egopack.py:316-448).
+    ``steps_per_call`` sets which steps log the global norms under
+    ``log_grad_norms="last"`` (``norms_due``) and the step counts at
+    which the ``profile_dir`` trace opens and closes. With ``banks``
+    (phase 2) they are the steps' leading extra argument
     (egopack_tpu/train/driver.py:346). The steps' logs stay on the device
     until the epoch's end. Every ``log_histograms_every`` epochs,
     ``hist_fn`` takes a snapshot on the epoch's first batch group with a
@@ -461,6 +465,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
     egopack_tpu/train/driver.py:433-438). Returns (val_metrics, per-epoch
     stats)."""
     spc = int(cfg.get("steps_per_call", 1))
+    log_norms = cfg.get("log_grad_norms", True)
     hist_every = int(cfg.get("log_histograms_every", 0)) if hist_fn else 0
     device = system.device
     x_dtype = torch.bfloat16 if system.compute_dtype == torch.bfloat16 \
@@ -488,8 +493,7 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                          [task_weights[t] for t in TASKS])
         lr = lr_fn(epoch - 1)
         logs: List[Dict[str, torch.Tensor]] = []
-        pending: list = []
-        n_steps = 0
+        n_steps, total = 0, len(ml)
         data_s = 0.0  # the host's wait for each next batch group
         first_batches = None  # kept for the histograms only
         groups = device_prefetch(iter(ml), put, copier.ready)
@@ -501,24 +505,14 @@ def _run_epochs(cfg, *, system: MultiTaskSystem, opt_state, dsets,
                 break
             if hist_every and first_batches is None:
                 first_batches = batches
-            profiler.step(n_steps, spc)
-            if multi_fn is not None:
-                pending.append(batches)
-                if len(pending) < spc:
-                    continue
-                logs.append(multi_fn(opt_state, *extra, pending, generator,
-                                     lr))
-                pending = []
-                n_steps += spc
-            else:
-                logs.append(step_fn(opt_state, *extra, batches, generator,
-                                    lr))
-                n_steps += 1
+            if n_steps % spc == 0:
+                profiler.step(n_steps, spc)
+            logs.append(step_fn(opt_state, *extra, batches, generator, lr,
+                                log_norms=norms_due(log_norms, n_steps, spc,
+                                                    total)))
+            n_steps += 1
         if profiler.prof is not None:  # short epoch: close the trace
             profiler.stop()
-        for batches in pending:  # the tail, one step at a time
-            logs.append(step_fn(opt_state, *extra, batches, generator, lr))
-            n_steps += 1
         norm_keys = sorted({k for l in logs for k in l
                             if k.startswith(("grad_norm", "param_norm"))})
         means = _epoch_means(logs, [f"{t}_loss" for t in active] + norm_keys)
@@ -607,11 +601,6 @@ def train_mtl(cfg) -> Dict[str, Any]:
     per_layer = bool(cfg.get("log_per_layer_norms", False))
     step_fn = system.make_train_step(optimizer, active, log_norms=log_norms,
                                      per_layer_norms=per_layer)
-    spc = int(cfg.get("steps_per_call", 1))
-    multi_fn = (system.make_train_step_multi(optimizer, active, spc,
-                                             log_norms=log_norms,
-                                             per_layer_norms=per_layer)
-                if spc > 1 else None)
     eval_steps = make_eval_steps(system, task_weights)
     hist_fn = (system.make_histogram_fn(active)
                if int(cfg.get("log_histograms_every", 0)) > 0 else None)
@@ -620,8 +609,8 @@ def train_mtl(cfg) -> Dict[str, Any]:
     val_metrics, stats = _run_epochs(
         cfg, system=system, opt_state=opt_state, dsets=dsets,
         task_weights=task_weights, active=active, step_fn=step_fn,
-        multi_fn=multi_fn, lr_fn=lr_fn, run_gen=run_gen,
-        run_logger=run_logger, eval_steps=eval_steps, ckpt_dir=ckpt_dir,
+        lr_fn=lr_fn, run_gen=run_gen, run_logger=run_logger,
+        eval_steps=eval_steps, ckpt_dir=ckpt_dir,
         start_epoch=start_epoch,
         # validate in the last 5 epochs only (main_temporal.py:342-343)
         should_validate=lambda epoch: epoch >= cfg.num_epochs - 5,
@@ -747,10 +736,6 @@ def train_egopack(cfg) -> Dict[str, Any]:
                                              log_norms=log_norms,
                                              per_layer_norms=per_layer,
                                              **modes)
-    spc = int(cfg.get("steps_per_call", 1))
-    multi_fn = (system.make_egopack_train_step_multi(
-        optimizer, active, graphone, spc, log_norms=log_norms,
-        per_layer_norms=per_layer, **modes) if spc > 1 else None)
     hist_fn = (system.make_histogram_fn(active, graphone=graphone, **modes)
                if int(cfg.get("log_histograms_every", 0)) > 0 else None)
     eval_steps = make_eval_steps(system, task_weights, aux_tasks, graphone,
@@ -762,8 +747,8 @@ def train_egopack(cfg) -> Dict[str, Any]:
     val_metrics, stats = _run_epochs(
         cfg, system=system, opt_state=opt_state, dsets=dsets,
         task_weights=task_weights, active=active, step_fn=step_fn,
-        multi_fn=multi_fn, lr_fn=lr_fn, run_gen=run_gen,
-        run_logger=run_logger, eval_steps=eval_steps, ckpt_dir=ckpt_dir,
+        lr_fn=lr_fn, run_gen=run_gen, run_logger=run_logger,
+        eval_steps=eval_steps, ckpt_dir=ckpt_dir,
         start_epoch=start_epoch,
         # phase 2 validates every epoch (main_egopack.py:407-447)
         should_validate=lambda epoch: True, banks=banks,

@@ -55,8 +55,6 @@ from ..tracing import span
 from .optim import Adam, AdamState
 from .step_graph import StepGraphs
 
-TASK_ORDER = ("ar", "lta", "oscc", "pnr")
-
 # checkpoint keys mirror the reference state dict
 # (reference main_temporal.py:410-416)
 CKPT_KEYS = {"ar": "task/recognition", "oscc": "task/oscc",
@@ -122,6 +120,18 @@ def _norms(sets: Dict[str, Dict[str, torch.Tensor]], split: Collection[str],
         sq = sum_squares(leaves, slots, 2 * n, roots=False)
         out = torch.sqrt(sq[:n] + all_reduce_(sq[n:].clone(), axis))
     return dict(zip(sets, out.unbind()))
+
+
+def norms_due(log_norms, index: int, steps_per_call: int, total: int) -> bool:
+    """Whether step ``index`` (from 0) of ``total`` logs the global norms,
+    by the config's ``log_grad_norms``: True and False as they are;
+    ``"last"`` on the last step of each full group of ``steps_per_call``
+    and on every step after the last full group (the JAX driver's
+    one-by-one tail, which runs with the truthy ``"last"``)."""
+    if log_norms != "last":
+        return bool(log_norms)
+    return (index % steps_per_call == steps_per_call - 1
+            or index >= total - total % steps_per_call)
 
 
 @functools.lru_cache(maxsize=8)
@@ -541,9 +551,11 @@ class MultiTaskSystem:
 
     def _make_inner_step(self, optimizer: Adam,
                          loss_fn: Callable[..., Tuple[torch.Tensor, Logs]],
-                         per_layer_norms: bool = False):
+                         log_norms=True, per_layer_norms: bool = False):
         """One optimizer step on ``loss_fn(*args)``:
-        ``inner(opt_state, args, log_norms) -> logs``. ``per_layer_norms``
+        ``inner(opt_state, args, log_norms=None) -> logs``. A call's
+        ``log_norms``, where given, replaces the factory's for that call
+        (the drivers' ``norms_due``). ``per_layer_norms``
         adds the norms of ``_subtree_sets`` to every step's logs, from the
         same ``_norms`` call as the global ones. On a data axis the
         gradients and the logged losses are summed over it (each rank's
@@ -607,9 +619,11 @@ class MultiTaskSystem:
                 optimizer.apply(named, opt_state, self.params())
             return logs
 
-        def step(opt_state: AdamState, args: tuple, log_norms: bool) -> Logs:
+        def step(opt_state: AdamState, args: tuple,
+                 norms: Optional[bool] = None) -> Logs:
             with span("egopack.step"):
-                return inner_step(opt_state, args, log_norms)
+                return inner_step(opt_state, args,
+                                  log_norms if norms is None else norms)
 
         return step
 
@@ -629,66 +643,27 @@ class MultiTaskSystem:
             off += t.numel()
         return out
 
-    @staticmethod
-    def _multi(inner, opt_state: AdamState, arg_list: Sequence[tuple],
-               log_norms) -> Logs:
-        """Sequential steps over ``arg_list``; logs stacked on a leading K
-        axis. ``log_norms="last"`` computes the norms on the last step only
-        (unstacked scalars)."""
-        last_only = log_norms == "last"
-        all_logs: List[Logs] = []
-        for k, args in enumerate(arg_list):
-            norms = (k == len(arg_list) - 1) if last_only else log_norms
-            all_logs.append(inner(opt_state, args, norms))
-        logs = {key: torch.stack([l[key] for l in all_logs])
-                for key in all_logs[0]}
-        if last_only:
-            logs.update({k: v for k, v in all_logs[-1].items()
-                         if k not in all_logs[0]})
-        return logs
-
     def make_train_step(self, optimizer: Adam, active: Tuple[str, ...],
                         log_norms: bool = True,
                         per_layer_norms: bool = False):
         """One step over the active tasks:
-        ``step(opt_state, batches, generator, lr) -> logs``. Parameters and
-        moments update in place; logs are device scalars (no host sync).
-        ``log_norms=False`` drops the global grad and param norms;
+        ``step(opt_state, batches, generator, lr, log_norms=None) -> logs``.
+        Parameters and moments update in place; logs are device scalars (no
+        host sync). ``log_norms=False`` drops the global grad and param
+        norms, and a call's ``log_norms`` sets them for that call alone;
         ``per_layer_norms`` adds one of each per subtree
         (``_subtree_sets``)."""
         inner = self._make_inner_step(optimizer,
                                       self._make_phase1_loss_fn(active),
-                                      per_layer_norms)
+                                      log_norms, per_layer_norms)
 
         def step(opt_state: AdamState, batches: Dict[str, Batch],
-                 generator: Optional[torch.Generator], lr: float) -> Logs:
+                 generator: Optional[torch.Generator], lr: float,
+                 log_norms: Optional[bool] = None) -> Logs:
             opt_state.hyperparams["learning_rate"] = lr
             return inner(opt_state, (batches, generator), log_norms)
 
         return step
-
-    def make_train_step_multi(self, optimizer: Adam, active: Tuple[str, ...],
-                              steps_per_call: int, log_norms=True,
-                              per_layer_norms: bool = False):
-        """``steps_per_call`` sequential steps over as many batch groups:
-        ``multi_step(opt_state, batch_list, generator, lr) -> logs`` with a
-        leading K axis on each log. ``log_norms="last"`` computes the global
-        norms on the last step only (unstacked scalars); per-layer norms
-        are on every step."""
-        inner = self._make_inner_step(optimizer,
-                                      self._make_phase1_loss_fn(active),
-                                      per_layer_norms)
-
-        def multi_step(opt_state: AdamState,
-                       batch_list: Sequence[Dict[str, Batch]],
-                       generator: Optional[torch.Generator],
-                       lr: float) -> Logs:
-            opt_state.hyperparams["learning_rate"] = lr
-            return self._multi(inner, opt_state,
-                               [(batch_list[k], generator)
-                                for k in range(steps_per_call)], log_norms)
-
-        return multi_step
 
     def make_histogram_fn(self, active: Tuple[str, ...],
                           graphone: Optional[GraphONE] = None,
@@ -829,41 +804,19 @@ class MultiTaskSystem:
                                 late_fusion: bool = True, log_norms=True,
                                 per_layer_norms: bool = False):
         """One EgoPack step:
-        ``step(opt_state, banks, batches, generator, lr) -> logs``, in
-        place like the phase-1 step (``egopack_tpu/train/system.py:
-        687-723``)."""
+        ``step(opt_state, banks, batches, generator, lr, log_norms=None) ->
+        logs``, in place and with the norms like the phase-1 step
+        (``egopack_tpu/train/system.py:687-723``)."""
         inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
             active, graphone, backprop_temporal_graph,
-            temporal_graph_train_mode, late_fusion), per_layer_norms)
+            temporal_graph_train_mode, late_fusion), log_norms,
+            per_layer_norms)
 
         def step(opt_state: AdamState, banks: Banks,
                  batches: Dict[str, Batch],
-                 generator: Optional[torch.Generator], lr: float) -> Logs:
+                 generator: Optional[torch.Generator], lr: float,
+                 log_norms: Optional[bool] = None) -> Logs:
             opt_state.hyperparams["learning_rate"] = lr
             return inner(opt_state, (banks, batches, generator), log_norms)
 
         return step
-
-    def make_egopack_train_step_multi(self, optimizer: Adam,
-                                      active: Tuple[str, ...],
-                                      graphone: GraphONE, steps_per_call: int,
-                                      log_norms=True,
-                                      per_layer_norms: bool = False, **kw):
-        """``steps_per_call`` EgoPack steps:
-        ``multi_step(opt_state, banks, batch_list, generator, lr) -> logs``
-        (same stacking and ``log_norms="last"`` as
-        ``make_train_step_multi``); ``kw`` as for
-        ``make_egopack_train_step``."""
-        inner = self._make_inner_step(optimizer, self.make_egopack_loss_fn(
-            active, graphone, **kw), per_layer_norms)
-
-        def multi_step(opt_state: AdamState, banks: Banks,
-                       batch_list: Sequence[Dict[str, Batch]],
-                       generator: Optional[torch.Generator],
-                       lr: float) -> Logs:
-            opt_state.hyperparams["learning_rate"] = lr
-            return self._multi(inner, opt_state,
-                               [(banks, batch_list[k], generator)
-                                for k in range(steps_per_call)], log_norms)
-
-        return multi_step

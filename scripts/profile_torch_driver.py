@@ -6,13 +6,12 @@
 Writes a seeded Ego4D-layout fixture (1536-d features, 115 verbs, 478 nouns,
 8 videos: 15 AR steps an epoch at batch 16) to a temporary directory and runs
 ``egopack_torch.main_temporal`` on it at full width (hidden 1024, TRN hidden
-1024, dropout 0.5, AR+LTA+PNR, fused Adam, ``steps_per_call`` 4): the
-driver's own per-epoch ms per optimizer step and the host's wait for data.
+1024, dropout 0.5, AR+LTA+PNR, fused Adam): the driver's own per-epoch ms
+per optimizer step and the host's wait for data.
 
-Then, with the trained system, one epoch's worth of steps (15: three groups
-of 4 and a tail of 3, as the driver runs them) in five arms, in turns (the
-given order, then reversed), each timed by the host clock up to a
-synchronize:
+Then, with the trained system, one epoch's worth of steps (15, one a batch
+group, as the driver runs them) in five arms, in turns (the given order,
+then reversed), each timed by the host clock up to a synchronize:
 
 - ``steps``: the batch groups already on the card, steps only;
 - ``loop``: the driver's loop, loading included (prefetch threads, pinned
@@ -55,15 +54,13 @@ from egopack_torch.main_temporal import main as train_main  # noqa: E402
 from egopack_torch.profiling import busy_us, device_events  # noqa: E402
 from egopack_torch.train.driver import TASKS  # noqa: E402
 
-SPC = 4
-
 
 def overrides(root: str, tmp: str, epochs: int):
     return ["k=1", "batch_size=16", "model.hidden_size=1024",
             "model.temporal_pooling.hidden_size=1024",
             "model.temporal_pooling.dropout=0.5", "enabled_tasks=[ar,lta,pnr]",
             "optimizer.impl=fused", f"num_epochs={epochs}",
-            "validation_split=val", f"steps_per_call={SPC}",
+            "validation_split=val",
             f"dataset_recognition.root={root}", f"dataset_oscc.root={root}",
             f"dataset_lta.root={root}", f"dataset_pnr.root={root}",
             f"artifact_dir={tmp}/artifacts", f"output_dir={tmp}/outputs"]
@@ -78,7 +75,6 @@ class Arms:
         self.dsets = result["dsets"]
         self.active = ("ar", "lta", "pnr")
         self.step = system.make_train_step(opt, self.active)
-        self.multi = system.make_train_step_multi(opt, self.active, SPC)
         self.copier = DeviceCopier(system.device)
         self.gen = torch.Generator(device=system.device).manual_seed(0)
         self.epoch = 10  # a pass the driver did not run
@@ -98,13 +94,8 @@ class Arms:
                 if t in self.active}
 
     def run_steps(self, groups) -> int:
-        pending, n = [], 0
+        n = 0
         for g in groups:
-            pending.append(g)
-            if len(pending) == SPC:
-                self.multi(self.state, pending, self.gen, 1e-6)
-                pending, n = [], n + SPC
-        for g in pending:
             self.step(self.state, g, self.gen, 1e-6)
             n += 1
         return n

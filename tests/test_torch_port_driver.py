@@ -20,7 +20,8 @@ by values that close to an edge) and
 ``+model.propagate_dtype=bfloat16`` (losses and norms at one bf16 unit,
 rtol 2**-7: the forward passes round at the same places, but the backward
 passes sum some bf16 gradients in another order, one to four bf16 units
-apart in an element of a gradient)."""
+apart in an element of a gradient), and ``log_grad_norms=last`` with a
+tail (norms at rtol 1e-4)."""
 
 import json
 import logging
@@ -285,7 +286,9 @@ def test_cli_runs_the_verify_phase1_command(ego4d_root, tmp_path):
 OPTIONS = {"norms_and_histograms": ("log_per_layer_norms=True",
                                     "log_histograms_every=1"),
            "bf16": ("+model.propagate_dtype=bfloat16",),
-           "encoding": ("model.temporal_pooling.encoding=learnt",)}
+           "encoding": ("model.temporal_pooling.encoding=learnt",),
+           # 15 steps an epoch: three groups of 4 and a tail of 3
+           "last_norms": ("log_grad_norms=last", "steps_per_call=4")}
 
 
 @pytest.fixture(scope="module")
@@ -337,6 +340,15 @@ def test_pooling_encoding_matches_jax(option_runs):
     assert pooling.encoding == "learnt"
     assert "temporal_graph.pooling.frame_encoding" in tres["system"].params()
     assert_train_records_match(tres, jres, rtol=1e-4)
+
+
+def test_last_norms_match_jax(option_runs):
+    """``log_grad_norms=last`` at ``steps_per_call`` 4: the global norms of
+    each group's last step and of each step of the tail, averaged over the
+    epoch, at rtol 1e-4 of JAX's multi-step and one-by-one tail."""
+    jres, tres = option_runs["last_norms"]
+    ref = assert_train_records_match(tres, jres, rtol=1e-4)
+    assert {"train/grad_norm", "train/param_norm"} <= set(ref[1])
 
 
 def dropout_run(runs, tmp, *extra):

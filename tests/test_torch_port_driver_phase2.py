@@ -41,6 +41,7 @@ from egopack_torch.data.synthetic import generate_ego4d_fixture
 from egopack_torch.entry import build_mtl_step
 from egopack_torch.train import checkpoint as tckpt
 from egopack_torch.train import optim as toptim
+from egopack_torch.train import system as tsystem
 from egopack_tpu import evaluate as jevaluate
 from egopack_tpu.train import checkpoint as jckpt
 from egopack_tpu.train import optim as joptim
@@ -335,6 +336,31 @@ def test_pooling_encoding_runs_in_phase2(runs, tmp_path):
     payload, _ = jckpt.load_artifact(f"{tmp_path}/artifacts", NOVEL)
     mlp = payload["temporal_graph"]["pooling"]["encoding_mlp"]
     assert mlp["kernel"].shape == (16, 16) and mlp["bias"].shape == (16,)
+
+
+@pytest.mark.parametrize("phase", ["mtl", "egopack"])
+def test_a_run_builds_one_train_step(runs, tmp_path, monkeypatch, phase):
+    """A driver run with ``steps_per_call`` above 1 (phase 1: the config's
+    4; phase 2: 2) builds its train step once: one call of
+    ``MultiTaskSystem._make_inner_step``, so one table of CUDA graphs."""
+    calls = []
+    orig = tsystem.MultiTaskSystem._make_inner_step
+
+    def counted(self, *args, **kw):
+        calls.append(args)
+        return orig(self, *args, **kw)
+
+    monkeypatch.setattr(tsystem.MultiTaskSystem, "_make_inner_step", counted)
+    if phase == "mtl":
+        tmain_temporal.main(base(runs["root"], str(tmp_path), "device=cpu",
+                                 "num_epochs=1", "save_model=False",
+                                 "enabled_tasks=[ar,lta,pnr]"))
+    else:
+        shutil.copytree(f"{runs['tmp']['port']}/artifacts/{MTL}",
+                        f"{tmp_path}/artifacts/{MTL}")
+        tmain.main(phase2(runs["root"], str(tmp_path), "device=cpu",
+                          "num_epochs=1", "save_model=False"))
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("extra", ["log_per_layer_norms=True",

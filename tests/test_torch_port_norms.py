@@ -4,9 +4,9 @@ the same weights and batches, dropout off.
 
 - per-layer norms: the key sets equal JAX's letter for letter (the flax
   tree's first two levels rebuilt from the port's names) and the values
-  agree at rtol 1e-5, for the phase-1 step, the phase-1 multi-step with
-  ``log_norms="last"`` and the phase-2 step; frozen subtrees read 0 on
-  both sides.
+  agree at rtol 1e-5, for the phase-1 step, two phase-1 steps under
+  ``log_norms="last"`` (against JAX's multi-step) and the phase-2 step;
+  frozen subtrees read 0 on both sides.
 - ``histogram`` against ``jnp.histogram`` on the same values: counts
   equal, edges within rtol 1e-6 of the largest edge's magnitude (an edge
   ``lo * (1 - s) + hi * s`` near zero keeps the rounding error of its
@@ -77,8 +77,10 @@ def test_per_layer_norms_phase1_match_jax():
 
 
 def test_per_layer_norms_multi_step_last_match_jax():
-    """``log_norms="last"``: the global norms on the last step only, the
-    per-layer ones stacked over the K steps, as in JAX."""
+    """``log_norms="last"``: JAX's multi-step against two calls of the
+    port's one step, the first with ``log_norms=False`` and the second with
+    True, as the drivers' ``norms_due`` makes them; the per-layer norms on
+    both calls, the global ones on the second only."""
     jsys, params = jax_system("concat")
     tsys = torch_system(params, "concat")
     groups = [synthetic_batches(tsys, BATCH, FEAT, seed=s) for s in (1, 2)]
@@ -91,15 +93,18 @@ def test_per_layer_norms_multi_step_last_match_jax():
     # fold_in(key, 0 + k) for step k, ignored with dropout off
     _, _, jl = jmulti(params, jo.init(params), jgroups,
                       jax.random.PRNGKey(0), 0, LR)
-    tl = tsys.make_train_step_multi(to, ACTIVE, 2, log_norms="last",
-                                    per_layer_norms=True)(
-        to.init(tsys.params()), tgroups, None, LR)
+    step = tsys.make_train_step(to, ACTIVE, log_norms="last",
+                                per_layer_norms=True)
+    state = to.init(tsys.params())
+    first, last = (step(state, g, None, LR, log_norms=due)
+                   for g, due in zip(tgroups, (False, True)))
+    assert "grad_norm" not in first and last["grad_norm"].shape == ()
+    tl = {k: torch.stack([first[k], last[k]]) for k in _norm_keys(last)}
     ours = _assert_norms_match(tl, jl)
     assert ours["grad_norm/temporal_graph/sage0"].shape == (2,)
-    assert tl["grad_norm"].shape == () and np.asarray(jl["grad_norm"]).shape \
-        == ()
-    np.testing.assert_allclose(float(tl["grad_norm"]), float(jl["grad_norm"]),
-                               rtol=1e-4)
+    assert np.asarray(jl["grad_norm"]).shape == ()
+    np.testing.assert_allclose(float(last["grad_norm"]),
+                               float(jl["grad_norm"]), rtol=1e-4)
 
 
 def test_per_layer_norms_phase2_match_jax():

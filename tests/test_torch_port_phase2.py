@@ -153,11 +153,11 @@ def test_eval_mode_backbone_ignores_the_dropout_generator():
 
 
 def test_multi_step_matches_single_steps():
-    """make_egopack_train_step_multi is K plain steps; "last" norms only at
-    the end."""
+    """``entry.EgoPackStep`` over K groups is K plain calls of the one step;
+    under "last" only the last logs the global norms."""
     banks = numpy_banks()
     _, _, params, _ = jax_phase2(banks)
-    runs = []
+    runs, logs = [], []
     for multi in (False, True):
         tsys, tgo, tb = torch_phase2(params, banks)
         jsys, _ = jax_system()
@@ -166,19 +166,23 @@ def test_multi_step_matches_single_steps():
                         trainable_mask=topt.trainable_mask_fn(_trainable()))
         state = opt.init(tsys.params())
         if multi:
-            logs = tsys.make_egopack_train_step_multi(
-                opt, ACTIVE, tgo, 2, log_norms="last")(state, tb, groups,
-                                                       None, LR)
-            assert logs["oscc_loss"].shape == (2,)
-            assert logs["grad_norm"].shape == ()
+            step = tsys.make_egopack_train_step(opt, ACTIVE, tgo,
+                                                log_norms="last")
+            logs.append(tentry.EgoPackStep(tsys, tgo, tb, opt, state, step,
+                                           groups, None, "last")(LR))
+            assert logs[-1]["oscc_loss"].shape == (2,)
+            assert logs[-1]["grad_norm"].shape == ()
         else:
             step = tsys.make_egopack_train_step(opt, ACTIVE, tgo)
-            for g in groups:
-                step(state, tb, g, None, LR)
+            logs.append([step(state, tb, g, None, LR) for g in groups])
         runs.append({n: p.detach().clone() for n, p in tsys.params().items()})
     for name in runs[0]:
         torch.testing.assert_close(runs[1][name], runs[0][name], rtol=0,
                                    atol=0)
+    plain, grouped = logs
+    assert torch.equal(grouped["oscc_loss"],
+                       torch.stack([l["oscc_loss"] for l in plain]))
+    assert torch.equal(grouped["grad_norm"], plain[-1]["grad_norm"])
 
 
 @pytest.mark.parametrize("name,late", [("oscc", True), ("oscc", False),

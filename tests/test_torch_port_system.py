@@ -15,7 +15,7 @@ from egopack_tpu.train import optim as jopt
 from egopack_tpu.train.driver import CKPT_KEYS, trainable_mask_fn as j_mask
 from egopack_torch import interop
 from egopack_torch.data import graphs as tgraphs
-from egopack_torch.entry import synthetic_batches
+from egopack_torch.entry import MTLStep, synthetic_batches
 from egopack_torch.train import optim as topt
 from egopack_torch.train.system import lta_full_adjacency
 from torch_port_common import (ACTIVE, BATCH, FEAT, LOSS_TOL, MODULE_TOL,
@@ -152,9 +152,10 @@ def test_bf16_compute_losses_match_jax():
 
 
 def test_multi_step_matches_single_steps():
-    """make_train_step_multi is K plain steps; "last" norms only at the end."""
+    """``entry.MTLStep`` over K groups is K plain calls of the one step;
+    under "last" only the last logs the global norms."""
     _, params = jax_system()
-    runs = []
+    runs, logs = [], []
     for multi in (False, True):
         tsys = torch_system(params, "concat")
         groups = [synthetic_batches(tsys, BATCH, FEAT, seed=s)
@@ -164,15 +165,19 @@ def test_multi_step_matches_single_steps():
                         trainable_mask=topt.trainable_mask_fn(TRAINABLE))
         state = opt.init(tsys.params())
         if multi:
-            logs = tsys.make_train_step_multi(opt, ACTIVE, 2, "last")(
-                state, groups, None, LR)
-            assert logs["ar_loss"].shape == (2,)
-            assert logs["grad_norm"].shape == ()
+            step = tsys.make_train_step(opt, ACTIVE, "last")
+            logs.append(MTLStep(tsys, opt, state, step, groups, None,
+                                "last")(LR))
+            assert logs[-1]["ar_loss"].shape == (2,)
+            assert logs[-1]["grad_norm"].shape == ()
         else:
             step = tsys.make_train_step(opt, ACTIVE)
-            for g in groups:
-                step(state, g, None, LR)
+            logs.append([step(state, g, None, LR) for g in groups])
         runs.append({n: p.detach().clone() for n, p in tsys.params().items()})
     for name in runs[0]:
         torch.testing.assert_close(runs[1][name], runs[0][name], rtol=0,
                                    atol=0)
+    plain, grouped = logs
+    for key in ("ar_loss", "lta_loss", "pnr_loss"):
+        assert torch.equal(grouped[key], torch.stack([l[key] for l in plain]))
+    assert torch.equal(grouped["grad_norm"], plain[-1]["grad_norm"])
