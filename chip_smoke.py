@@ -22,7 +22,8 @@ Phases, any failure exits non-zero and prints no result:
              feat 1536, batch 16 per task, fused Adam, dropout 0.5 from a
              seeded generator): 3 warm-up + 20 timed steps. Launch counts are
              zeroed just before and read just after (two sum_squares
-             launches a step: the norms). Finite losses, moved
+             launches a step: the norms; the linear layers' 71 products
+             a step on tf32x3_gemm). Finite losses, moved
              trainable parameters, an unchanged OSCC head. Then one step with
              dropout off against the same step with the plain Adam, and a
              small model on the card against the same model on the CPU, and
@@ -86,7 +87,8 @@ Phases, any failure exits non-zero and prints no result:
              built on the card from 8 seeded AR batches of 256 clips, then 3
              warm-up + 20 timed steps with the kNN kernel and fused Adam
              (counts zeroed just before, read just after: one launch of each
-             per step, two of sum_squares). Finite losses, moved trainable
+             per step, two of sum_squares, 87 of tf32x3_gemm). Finite
+             losses, moved trainable
              leaves, the other
              heads and the banks bit-identical. One step with the plain kNN
              from the same state, the eval step, a checkpoint of the state
@@ -125,7 +127,12 @@ Phases, any failure exits non-zero and prints no result:
              and parameters), as the step calls it: against a float64 sum
              (rtol 1e-6), two launches a call, timed twice in turns with the
              plain chain and ``torch._foreach_norm`` (yardstick only), beside
-             its bytes bound.
+             its bytes bound. Then the split-TF32 GEMM kernel at each cell's
+             main products: its error against float64 within 2x of cuBLAS
+             float32's, timed twice in turns with its plain version and
+             ``torch.mm``/``torch.bmm`` (yardstick only), beside its bound
+             (three TF32 products at the tensor cores' rate, or the
+             operands' bytes).
 14. multigpu - run after tools. (a) The phase-1 CLI of the driver phase
              with ``parallel.multihost=True``: ``torch.distributed`` on NCCL
              at world size 1, the grid and its groups made; its epoch
@@ -168,7 +175,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import egopack_torch
-from egopack_torch import aggregate, interop
+from egopack_torch import aggregate, flops, interop
 from egopack_torch import entry as port_entry
 from egopack_torch.data.synthetic import generate_ego4d_fixture
 from egopack_torch.device import make_generator
@@ -183,6 +190,7 @@ from egopack_torch.main_temporal import main as train_main
 from egopack_torch.models.graphone import GraphONE
 from egopack_torch.models.pooling import ENCODINGS, TRNPooling
 from egopack_torch.ops import fused_adam as tfa
+from egopack_torch.ops import gemm as tgemm
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops import sum_squares as tss
 from egopack_torch.ops.knn import prototype_topk
@@ -422,6 +430,7 @@ def phase_train(dev, card: str):
     before = snapshot(mtl.system)
     tfa.fused_adam.launches = 0
     tss.sum_squares.launches = 0
+    tgemm.tf32x3_gemm.launches = 0
     for _ in range(WARMUP):
         mtl(LR)
     torch.cuda.synchronize()
@@ -440,6 +449,10 @@ def phase_train(dev, card: str):
             f"fused_adam launched {launches} times in {steps} steps")
     require(norm_launches == 2 * steps,
             f"sum_squares launched {norm_launches} times in {steps} steps")
+    gemm_launches = tgemm.tf32x3_gemm.launches
+    require(gemm_launches == flops.mtl_step_products() * steps,
+            f"tf32x3_gemm launched {gemm_launches} times in {steps} steps, "
+            f"not {flops.mtl_step_products()} a step")
     for i, l in enumerate(logs):
         for k, v in l.items():
             require(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
@@ -454,7 +467,9 @@ def phase_train(dev, card: str):
     log(f"train: {step_ms!r} ms/step (CUDA events over {TIMED} steps; host "
         f"{host_s / TIMED * 1e3!r} ms/step) on {card}")
     log(f"train: fused_adam launches {launches}, sum_squares launches "
-        f"{norm_launches} in {steps} steps")
+        f"{norm_launches}, tf32x3_gemm launches {gemm_launches} in {steps} "
+        f"steps")
+    GEMM_LAUNCHES["train"] = gemm_launches
 
     # one step, dropout off, fused kernel against the plain Adam
     mtl.system.backbone.pooling.dropout = 0.0
@@ -921,6 +936,7 @@ def phase_egopack(mtl, loaded, dev, card: str):
     tfa.fused_adam.launches = 0
     tkt.cosine_knn.launches = 0
     tss.sum_squares.launches = 0
+    tgemm.tf32x3_gemm.launches = 0
     for _ in range(WARMUP):
         ego(LR_EGO)
     torch.cuda.synchronize()
@@ -941,6 +957,11 @@ def phase_egopack(mtl, loaded, dev, card: str):
             f"{steps} steps, not one each per step")
     require(norm_launches == 2 * steps,
             f"sum_squares launched {norm_launches} times in {steps} steps")
+    gemm_launches = tgemm.tf32x3_gemm.launches
+    require(gemm_launches == flops.egopack_step_products() * steps,
+            f"tf32x3_gemm launched {gemm_launches} times in {steps} steps, "
+            f"not {flops.egopack_step_products()} a step")
+    GEMM_LAUNCHES["egopack"] = gemm_launches
     for i, l in enumerate(logs):
         for k, v in l.items():
             require(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
@@ -959,8 +980,8 @@ def phase_egopack(mtl, loaded, dev, card: str):
     log(f"egopack: {step_ms!r} ms/step (CUDA events over {TIMED} steps; host "
         f"{host_s / TIMED * 1e3!r} ms/step) on {card}")
     log(f"egopack: cosine_knn launches {knn_launches}, fused_adam launches "
-        f"{adam_launches}, sum_squares launches {norm_launches} in {steps} "
-        f"steps")
+        f"{adam_launches}, sum_squares launches {norm_launches}, "
+        f"tf32x3_gemm launches {gemm_launches} in {steps} steps")
 
     # one step with the plain kNN from the same state
     feats = secondary_features(ego)
@@ -1279,6 +1300,97 @@ def phase_norms(dev, card: str) -> dict:
         out[cell] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                      "library_ms": ms["library"], "bound_ms": bound,
                      "bound_by": "bytes", "max_rel_err": worst}
+    return out
+
+
+# the products that carry each benchmark cell's step: (layout, batch, m, n,
+# k), "nt" forward, "nn" an input's gradient or GraphONE's forward, "tn" a
+# weight's gradient
+GEMM_CELLS = {
+    "mtl-step": (("nt", 1, 752, 1024, 4608), ("nt", 1, 752, 1024, 1024),
+                 ("nn", 1, 752, 1024, 1024), ("tn", 1, 1024, 1024, 752),
+                 ("tn", 1, 1024, 4608, 752)),
+    "novel-oscc-step": (("nn", 3, 64, 1024, 1024), ("nt", 3, 64, 1024, 1024),
+                        ("tn", 3, 1024, 1024, 64), ("nt", 1, 64, 1024, 4608),
+                        ("tn", 1, 1024, 4608, 64)),
+    "novel-lta-step": (("nn", 3, 352, 1024, 1024), ("nt", 3, 352, 1024, 1024),
+                       ("tn", 3, 1024, 1024, 352),
+                       ("nt", 1, 352, 1024, 4608)),
+}
+GEMM_LAUNCHES = {}  # tf32x3_gemm launches by path, from the step phases
+
+
+def gemm_operands(layout, batch, m, n, k, dev):
+    gen = torch.Generator(device=dev).manual_seed(m * n + k)
+    lead = (batch,) if batch > 1 else ()
+    a = torch.randn(lead + ((k, m) if layout == "tn" else (m, k)),
+                    device=dev, generator=gen)
+    b = torch.randn(lead + ((n, k) if layout == "nt" else (k, n)),
+                    device=dev, generator=gen)
+    return a, b
+
+
+def phase_gemm(dev, card: str) -> dict:
+    """The split-TF32 kernel at each benchmark cell's main products: the
+    error's RMS against a float64 product, within 2x of cuBLAS float32's;
+    then timed twice in turns with its plain version (``torch.matmul`` in
+    float32, the operands transposed as the layout says) and ``torch.mm``
+    or ``torch.bmm`` on the same operands (yardstick only; the port never
+    calls it), the kernel by its launches' mean durations, the others by
+    ``device_ms``. The bound is the larger of three TF32 products at the
+    tensor cores' rate and the operands and the result moved once at the
+    memory rate."""
+    out = {}
+    for cell, shapes in GEMM_CELLS.items():
+        rows = []
+        for layout, batch, m, n, k in shapes:
+            a, b = gemm_operands(layout, batch, m, n, k, dev)
+            p = tgemm.plan(batch, m, n, k)
+            names = (("tf32x3_gemm<", "tf32x3_gemm_splitk_reduce")
+                     if p.splits > 1 else ("tf32x3_gemm<",))
+            lhs = a.transpose(-1, -2) if layout == "tn" else a
+            rhs = b.transpose(-1, -2) if layout == "nt" else b
+            mm = torch.bmm if batch > 1 else torch.mm
+            arms = {"kernel": lambda: tgemm.tf32x3_gemm(a, b, layout),
+                    "plain": lambda: tgemm.tf32x3_gemm_reference(a, b,
+                                                                 layout),
+                    "library": lambda: mm(lhs, rhs)}
+            want = tgemm.tf32x3_gemm_reference(a.double(), b.double(),
+                                               layout)
+            got = arms["kernel"]()
+            rms = float((got.double() - want).square().mean().sqrt())
+            f32 = float((arms["library"]().double() - want).square().mean()
+                        .sqrt())
+            require(rms <= 2 * f32, f"{cell} {layout} {(batch, m, n, k)}: "
+                                    f"error {rms!r} against cuBLAS's {f32!r}")
+            runs = {x: [] for x in arms}
+            order = ("plain", "kernel", "library")
+            for seq in (order, order[::-1]):
+                for x in seq:
+                    runs[x].append(launch_ms(arms[x], 20, names)
+                                   if x == "kernel"
+                                   else device_ms(arms[x], 20))
+            ms = {x: sum(v) / len(v) for x, v in runs.items()}
+            work = 2 * batch * m * n * k
+            ops_ms = 3 * work / tf32_peak(card) * 1e3
+            bytes_ms = (4 * batch * (m * k + k * n + m * n)
+                        / hbm_bytes_per_s(card) * 1e3)
+            bound = max(ops_ms, bytes_ms)
+            row = {"shape": [layout, batch, m, n, k], "plan": list(p),
+                   "ms": ms["kernel"], "plain_ms": ms["plain"],
+                   "library_ms": ms["library"], "bound_ms": bound,
+                   "bound_by": "ops" if ops_ms >= bytes_ms else "bytes",
+                   "rms_err": rms, "cublas_rms_err": f32}
+            rows.append(row)
+            log(f"numbers: tf32x3_gemm {cell} {layout} batch {batch} {m}x{n}"
+                f"x{k} (plan {tuple(p)}): device ms per call kernel "
+                f"{ms['kernel']!r} ({work / ms['kernel'] / 1e9:.1f} TFLOP/s "
+                f"of float32 work), plain {ms['plain']!r}, torch."
+                f"{mm.__name__} {ms['library']!r}; bound {bound!r} "
+                f"({row['bound_by']}), {100 * bound / ms['kernel']:.1f}% of "
+                f"it; error RMS {rms!r} (cuBLAS float32 {f32!r}); runs "
+                f"{json.dumps(runs)}; on {card}")
+        out[cell] = rows
     return out
 
 
@@ -2047,15 +2159,17 @@ def build_kernels() -> None:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(timed, load) for name, load in
                 (("fused_adam", tfa.load_library),
                  ("knn_topk", tkt.load_library),
-                 ("sum_squares", tss.load_library))}
+                 ("sum_squares", tss.load_library),
+                 ("tf32x3_gemm", tgemm.load_library))}
         times = {name: job.result() for name, job in jobs.items()}
     log(f"build: fused_adam.cu {times['fused_adam']:.1f} s, knn_topk.cu "
         f"{times['knn_topk']:.1f} s, sum_squares.cu "
-        f"{times['sum_squares']:.1f} s with nvcc for sm_90a, in parallel; "
+        f"{times['sum_squares']:.1f} s, tf32x3_gemm.cu "
+        f"{times['tf32x3_gemm']:.1f} s with nvcc for sm_90a, in parallel; "
         f"{time.perf_counter() - t0:.1f} s in all")
 
 
@@ -2089,6 +2203,7 @@ def run(dev, card: str):
     knn_nums = phase_knn_numbers(main_knn, dev, card)
     del ego
     norm_nums = phase_norms(dev, card)
+    gemm_nums = phase_gemm(dev, card)
 
     # launches on each path, counted from 0 just before it
     kernels = [{
@@ -2132,6 +2247,13 @@ def run(dev, card: str):
            if k != "max_rel_err"},
         "by_cell": norm_nums,
         "launches_by_path": {"train": norm_train, "egopack": norm_ego},
+    }, {
+        "name": "tf32x3_gemm", "route": "cuda",
+        "source": "egopack_torch/ops/csrc/tf32x3_gemm.cu",
+        "replaces": None, "launches": GEMM_LAUNCHES["train"],
+        **{k: v for k, v in gemm_nums["mtl-step"][1].items()},
+        "by_cell": gemm_nums,
+        "launches_by_path": dict(GEMM_LAUNCHES),
     }]
     summary = (f"fused_adam ({launches} launches in {steps} phase-1 steps; "
                f"{step_ms!r} ms/step; {drv_launches} launches in {drv_steps} "
@@ -2158,7 +2280,9 @@ def run(dev, card: str):
                f"by rank on {mg['ego_tp2']['bank_rows']} of "
                f"{mg['ego_tp2']['bank_rows_full']} bank rows a rank; "
                f"sum_squares {norm_train} launches in {steps} phase-1 steps, "
-               f"{norm_ego} in {ego_steps} phase-2 steps)")
+               f"{norm_ego} in {ego_steps} phase-2 steps; tf32x3_gemm "
+               f"{GEMM_LAUNCHES['train']} in {steps} phase-1 steps, "
+               f"{GEMM_LAUNCHES['egopack']} in {ego_steps} phase-2 steps)")
     return kernels, summary
 
 

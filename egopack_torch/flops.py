@@ -94,3 +94,47 @@ def egopack_step_flops(batch: int, feat_dim: int, hidden: int,
     # the primary and aux classifiers on the pooled features
     out += (1 + k_aux) * linear(batch, hidden, 2)
     return out
+
+
+# ---------------- the products' count ----------------
+# The float32 matrix products of a step that the linear layers and
+# GraphONE's stages run (``ops/gemm.py``: one ``tf32x3_gemm`` launch each);
+# SAGE's adjacency products and the LayerNorm statistics are not among them.
+
+def products(input_grad: bool = True, train: bool = True) -> int:
+    """One linear layer's products: the forward and, with ``train``, the
+    weight's gradient and, with ``input_grad``, the input's."""
+    return 1 if not train else 2 + int(input_grad)
+
+
+def _backbone_products(train: bool = True) -> int:
+    """Pooling's fc0 (its input is data), fc1 and fc_out, the SAGE layers'
+    three linears each, out_lin."""
+    return (products(input_grad=False, train=train)
+            + (2 + 3 * DEPTH + 1) * products(train=train))
+
+
+def mtl_step_products(active: Sequence[str] = ("ar", "lta", "pnr")) -> int:
+    """One phase-1 step over ``active``: the backbone, and each task's
+    projection (two linears) and classifiers (two for AR and LTA, one for
+    PNR and OSCC)."""
+    classes = {"ar": 2, "lta": 2, "pnr": 1, "oscc": 1}
+    return _backbone_products() + sum(
+        (2 + classes[t]) * products() for t in active)
+
+
+def egopack_step_products(heads: int = 1, aux: int = 3, tasks: int = 3,
+                          depth: int = DEPTH,
+                          backbone_trains: bool = True) -> int:
+    """One phase-2 step: the backbone (forward only when frozen), the novel
+    task's projection (no input gradient into it over a frozen backbone),
+    the ``tasks`` GraphONE tasks' projections forward only, the novel
+    task's ``heads`` classifiers with ``aux`` aux sets each, and GraphONE's
+    ``depth`` stages of three products (each with its weight's gradient;
+    with its input's but for the first stage's two, whose inputs hold no
+    gradient)."""
+    out = _backbone_products(train=backbone_trains)
+    out += (products(input_grad=backbone_trains) + products())
+    out += tasks * 2 * products(train=False)
+    out += heads * (1 + aux) * products()
+    return out + 3 * depth * products() - 2

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..device import DeviceLike, resolve_device
+from ..ops import gemm
 from ..ops.knn import prototype_topk
 from ..parallel.collectives import SINGLE, Axis, all_reduce_, reduce_from
 
@@ -203,15 +204,15 @@ class GraphONE(nn.Module):
         cur = f_stack
         for d in range(self.depth):
             agg = torch.maximum(nb_max, cur)
-            h = torch.bmm(agg, pick(self.w_l, d)) + torch.bmm(cur,
-                                                              pick(self.w_r, d))
+            h = gemm.bmm(agg, pick(self.w_l, d)) + gemm.bmm(cur,
+                                                            pick(self.w_r, d))
             mean = h.mean(-1, keepdim=True)
             var = ((h - mean) ** 2).mean(-1, keepdim=True)
             h = (h - mean) * torch.rsqrt(var + 1e-5)
             h = h * pick(self.ln_scale, d)[:, None] + pick(self.ln_bias,
                                                            d)[:, None]
             h = torch.relu(h)
-            out = torch.bmm(h, pick(self.w_proj, d)) + pick(self.b_proj,
+            out = gemm.bmm(h, pick(self.w_proj, d)) + pick(self.b_proj,
                                                             d)[:, None]
             cur = out + cur if self.residual else out
 

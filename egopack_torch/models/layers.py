@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..ops import gemm
 from ..parallel.collectives import (SINGLE, Axis, all_reduce_, reduce_from,
                                     sum_over_samples)
 
@@ -181,8 +182,8 @@ class TLinear(nn.Module):
         in_dtype = self.dtype or x.dtype
         if in_dtype != torch.bfloat16:
             if reduce_axis.size == 1:
-                return F.linear(x.to(in_dtype), self.weight, self.bias)
-            y = reduce_from(F.linear(x.to(in_dtype), self.weight),
+                return gemm.linear(x.to(in_dtype), self.weight, self.bias)
+            y = reduce_from(gemm.linear(x.to(in_dtype), self.weight),
                             reduce_axis)
             return y if self.bias is None else y + self.bias
         y = _Bf16Linear.apply(x.to(torch.bfloat16),

@@ -39,7 +39,8 @@ generator replays the graph (the phase-1 driver draws one an epoch).
 A replay returns the graph's own gradient buffers, which the caller reads
 before its next call, and fresh log tensors: one copy out of the buffer the
 graph packs them into. The port's launch counters (``cosine_knn.launches``,
-``fused_adam.launches``, ``sum_squares.launches``) count executions: a
+``fused_adam.launches``, ``sum_squares.launches``,
+``tf32x3_gemm.launches``) count executions: a
 capture adds nothing, and each replay adds the launches its graph holds.
 The span ``egopack.replay`` marks each ``replay()``.
 """
@@ -53,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.fused_adam import fused_adam
+from ..ops.gemm import tf32x3_gemm
 from ..ops.knn_topk import cosine_knn
 from ..ops.sum_squares import sum_squares
 from ..tracing import span
@@ -60,7 +62,8 @@ from ..tracing import span
 EAGER_CALLS = 3      # calls of a signature run eagerly before its capture
 MAX_GRAPHS = 4       # signatures captured at once
 MAX_SIGNATURES = 16  # signatures counted at once
-COUNTERS = (cosine_knn, fused_adam, sum_squares)  # with a ``launches`` count
+# with a ``launches`` count
+COUNTERS = (cosine_knn, fused_adam, sum_squares, tf32x3_gemm)
 _VALUES = (bool, int, float, str, type(None))
 
 Grads = Dict[str, torch.Tensor]

@@ -15,11 +15,12 @@ import gc
 import pytest
 import torch
 
-from egopack_torch import entry, tracing
+from egopack_torch import entry, flops, tracing
 from egopack_torch.device import make_generator
 from egopack_torch.models import graphone as graphone_module
 from egopack_torch.models.graphone import GraphONE
 from egopack_torch.ops import fused_adam as tfa
+from egopack_torch.ops import gemm
 from egopack_torch.ops import knn_topk as tkt
 from egopack_torch.ops import sum_squares as tss
 from egopack_torch.parallel.mesh import Mesh
@@ -388,9 +389,10 @@ def _card():
 def test_replayed_steps_equal_eager_ones_on_the_card(monkeypatch, phase):
     """3 eager steps and 8 replayed ones against 11 eager ones from the same
     seeds, the dropout generator replaced after 7: every log, the kNN's
-    lists, the parameters and both moments bit for bit; the launch counters
-    and the replay spans count the steps; a new batch size captures a
-    second graph, and the first still replays."""
+    lists, the parameters and both moments bit for bit, the products on the
+    split-TF32 kernel; the launch counters and the replay spans count the
+    steps; a new batch size captures a second graph, and the first still
+    replays."""
     dev = _card()
     eager_calls = step_graph.EAGER_CALLS
     with monkeypatch.context() as m:
@@ -400,7 +402,7 @@ def test_replayed_steps_equal_eager_ones_on_the_card(monkeypatch, phase):
     _assert_equal_runs(eager, again)  # eager steps repeat bit for bit
     tracing.reset()
     knn0, adam0 = tkt.cosine_knn.launches, tfa.fused_adam.launches
-    norms0 = tss.sum_squares.launches
+    norms0, gemm0 = tss.sum_squares.launches, gemm.tf32x3_gemm.launches
     captured = StepGraphs.captures
     graphed = _run(phase, dev, monkeypatch)
     torch.cuda.synchronize()
@@ -409,6 +411,11 @@ def test_replayed_steps_equal_eager_ones_on_the_card(monkeypatch, phase):
     # the global and per-layer norms: one call, two launches a step
     assert tss.sum_squares.launches - norms0 == 2 * STEPS
     assert tkt.cosine_knn.launches - knn0 == (STEPS if phase == 2 else 0)
+    # the linear layers' and GraphONE's products, as many a step (replayed
+    # or not) as the step's shapes give
+    products = (flops.mtl_step_products() if phase == 1
+                else flops.egopack_step_products())
+    assert gemm.tf32x3_gemm.launches - gemm0 == products * STEPS
     assert _span_count("egopack.step") == STEPS
     assert _span_count("egopack.replay") == STEPS - eager_calls
     # the forward span opens on the eager calls and the capture alone
