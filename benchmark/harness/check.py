@@ -27,11 +27,12 @@ cell compares, each with its limit):
   left out (``quiet_leaves`` counts them);
 - phase 2 also ``knn_slack`` and ``knn_dist_gap`` (``KnnJudge``): the
   program's neighbour lists against the reference's distances;
-- with OSCC the novel task, ``node_ties_followed`` and ``node_tie_gap``
-  (``NodeMax``, not compared): how many ties of the max over a clip's
-  nodes the reference took the program's way over the steps, and the
-  widest of their gaps; each step's gradient, read back from the
-  program's first moments, shows which way it took them;
+- where the loss pools OSCC over a clip's nodes (phase 1 with OSCC among
+  the tasks, phase 2 with OSCC the novel task), ``node_ties_followed`` and
+  ``node_tie_gap`` (``NodeMax``, not compared): how many ties of that max
+  the reference took the program's way over the steps, and the widest of
+  their gaps; each step's gradient, read back from the program's first
+  moments, shows which way it took them;
 - ``batch_gap``: the worst gap, element by element, between the batch
   groups the program's feed handed its first steps and those the reference
   made for itself (``reference_groups`` of the feed kind); ``inf`` where

@@ -41,9 +41,15 @@ def half_batch(step):
 
 def few_frozen(step):
     """A few trainable leaves left where they were, as a wrong trainable
-    mask would: GraphONE's in phase 2, the PNR head's in phase 1. Their
-    gradients and moments are computed as before."""
-    prefix = "graphone." if step.cfg["phase"] == 2 else "task.pnr."
+    mask would: GraphONE's in phase 2; in phase 1 the PNR head's, or the
+    OSCC head's in a task set without PNR. Their gradients and moments are
+    computed as before."""
+    if step.cfg["phase"] == 2:
+        prefix = "graphone."
+    elif "pnr" in step.cfg["tasks"]:
+        prefix = "task.pnr."
+    else:
+        prefix = "task.oscc."
     params = step.system.params()
     names = [n for n in step.trainable_names() if n.startswith(prefix)]
 

@@ -17,6 +17,12 @@ cell names lives in a file of its own under ``benchmark/``:
 
 A later cell, mix or metric is new files and new entries, never an edit.
 
+A phase-1 configuration (``"phase": 1``) of any published task set
+(``experiments/mtl.yaml``: ``[ar, oscc, lta]``, ``[ar, oscc, pnr]``,
+``[ar, lta, pnr]``, ``[oscc, lta, pnr]``) is new files only: ``tasks``
+lists the set in the order the step takes it, and the reference's loss
+(``reference/model.py:phase1_losses``) has each of the four tasks.
+
 A phase-2 configuration (``"phase": 2``) of any novel task gives, beside
 the sizes a phase-1 one gives: ``tasks`` (the novel task alone),
 ``aux_tasks`` (the tasks of its prototype banks and GraphONE, in the

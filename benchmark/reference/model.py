@@ -1,7 +1,8 @@
 """Plain PyTorch reference of the EgoPack training steps that the benchmark
-times: the phase-1 multi-task step (AR, LTA, PNR) and the phase-2 EgoPack
-step of any novel task (AR, LTA, OSCC or PNR, ``cfg["tasks"][0]``), each
-with its losses, backward pass and Adam update.
+times: the phase-1 multi-task step of any task set (``cfg["tasks"]``, as
+``experiments/mtl.yaml`` trains them) and the phase-2 EgoPack step of any
+novel task (AR, LTA, OSCC or PNR, ``cfg["tasks"][0]``), each with its
+losses, backward pass and Adam update.
 
 It follows the published model (sapeirone/EgoPack: ``models/graph.py``,
 ``models/temporal_pooling/trn_pooling.py``, ``models/tasks/*.py``,
@@ -33,7 +34,8 @@ the JAX package do:
   at each stage (SURVEY.md section 3.3);
 - a per-node loss (AR, LTA, PNR) is the mean over every node of the batch:
   a node labelled -1 reads 0 and stays in the count, as the program's
-  ``masked_mean`` takes it;
+  ``masked_mean`` takes it; OSCC's, a loss a clip, the mean over the
+  batch's clips;
 - the k-NN judge continues with the program's lists once it has judged
   them (:class:`KnnJudge`);
 - where OSCC's max over a clip's nodes has its two largest values within
@@ -202,10 +204,15 @@ HEADS = {"ar": "recognition", "lta": "lta", "pnr": "pnr", "oscc": "oscc"}
 # ---------------- phase 1 ----------------
 
 def phase1_losses(P: Params, cfg: dict, batches: Dict[str, Batch],
-                  gen: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-    """Each task's mean loss (``main_temporal.py``: AR and LTA the sum of
+                  gen: Optional[torch.Generator],
+                  node_max: Optional[NodeMax] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Each task's mean loss (``main_temporal.py``): AR and LTA the sum of
     the verb and noun cross entropies per node, PNR the binary cross
-    entropy per node, each averaged over every node of the batch)."""
+    entropy per node, each averaged over every node of the batch; OSCC the
+    plain cross entropy (no label smoothing: that is phase 2's) of each
+    clip's nodes max-pooled (by ``node_max`` where given) and classified,
+    averaged over the batch's clips."""
     tasks = cfg["tasks"]
     xs = [expand_nodes(cfg, t, batches[t]["x"]) for t in tasks]
     sizes = [x.shape[:2] for x in xs]
@@ -225,10 +232,15 @@ def phase1_losses(P: Params, cfg: dict, batches: Dict[str, Batch],
             per = sum(cross_entropy(_linear(P, f"{head}.cls{i}.TLinear_0",
                                             feat), y[..., i])
                       for i in range(2))
-        else:  # pnr
+        elif t == "oscc":
+            clip = feat.amax(1) if node_max is None else node_max.pool(feat)
+            per = cross_entropy(_linear(P, f"{head}.cls.TLinear_0", clip), y)
+        elif t == "pnr":
             logit = _linear(P, f"{head}.cls.TLinear_0", feat)[..., 0]
             per = F.binary_cross_entropy_with_logits(logit, y.float(),
                                                      reduction="none")
+        else:
+            raise ValueError(f"no phase-1 loss for task {t!r}")
         out[t] = per.mean()
     return out
 
@@ -508,9 +520,11 @@ NODE_TIES_TRIED = 4
 
 
 def pools_over_nodes(cfg: dict) -> bool:
-    """Whether the step's loss takes a max over each clip's nodes (phase 2
-    with OSCC the novel task)."""
-    return cfg["phase"] == 2 and cfg["tasks"][0] == "oscc"
+    """Whether the step's loss takes a max over each clip's nodes: phase 1
+    with OSCC among the tasks, phase 2 with OSCC the novel task."""
+    if cfg["phase"] == 1:
+        return "oscc" in cfg["tasks"]
+    return cfg["tasks"][0] == "oscc"
 
 
 # ---------------- a training step ----------------
@@ -562,11 +576,12 @@ class ReferenceRun:
               gen: Optional[torch.Generator], flips=()):
         """The step's loss and its gradient, each max over nodes flipped at
         ``flips``."""
+        if self.node_max is not None:
+            self.node_max.start(flips)
         if self.cfg["phase"] == 1:
-            parts = phase1_losses(self.P, self.cfg, batches, gen)
+            parts = phase1_losses(self.P, self.cfg, batches, gen,
+                                  self.node_max)
         else:
-            if self.node_max is not None:
-                self.node_max.start(flips)
             parts = phase2_losses(self.P, self.cfg, batches, gen, self.banks,
                                   self.knn, self.node_max)
         total = sum(parts.values())

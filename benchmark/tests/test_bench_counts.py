@@ -6,6 +6,7 @@ import pytest
 from benchmark.harness import counts
 from benchmark.harness.manifest import Manifest
 from benchmark.reference import params
+from benchmark.tests.test_bench_phase1_sets import SETS
 from benchmark.tests.tiny import ROOT
 
 CARD = "NVIDIA H100 80GB HBM3"
@@ -43,6 +44,16 @@ def test_phase1_matches_the_program_at_full_width(cfgs):
     cfg = cfgs[0]
     assert counts.step_flops(cfg) == flops.mtl_step_flops(16, 1536, 1024)
     assert counts.step_flops(cfg) == 89_187_581_952
+
+
+@pytest.mark.parametrize("tasks", SETS, ids="-".join)
+def test_every_published_task_set_matches_the_program(cfgs, tasks):
+    """Each task set of ``experiments/mtl.yaml`` at full width, OSCC's
+    classifier on the pool of each clip's nodes."""
+    from egopack_torch import flops
+    cfg = {**cfgs[0], "tasks": list(tasks)}
+    assert counts.step_flops(cfg) == flops.mtl_step_flops(16, 1536, 1024,
+                                                          active=tasks)
 
 
 def test_phase2_matches_the_program_at_full_width(cfgs):

@@ -69,10 +69,10 @@ def test_fault_fails_a_limit(card, cell, fault):
 
 
 # a seed on which OSCC's max over a clip's nodes has two values within
-# rounding (2.9e-07 of the pooled tensor's root mean square apart), and the
-# program takes the runner-up: read without following it, the first
-# gradient is off in 6.2% of its elements (GraphONE's leaves)
-NODE_TIE_SEED = 660810482
+# rounding (2.94e-07 of the pooled tensor's root mean square apart, in the
+# first step's third aux classifier set), and the program takes the
+# runner-up
+NODE_TIE_SEED = 4210006024
 
 
 @pytest.mark.cuda

@@ -59,9 +59,12 @@ def test_matmul_reads_nothing_without_products():
 
 
 # the ops that launch the products' kernels: on the card ``aten::mv``
-# runs its kernels under ``aten::addmv_``
+# runs its kernels under ``aten::addmv_``; the program's split-TF32 GEMM
+# (``egopack_torch/ops/gemm.py``) launches its kernels under its autograd
+# functions, forward and backward
 PRODUCT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
-               "aten::mv", "aten::addmv", "aten::addmv_")
+               "aten::mv", "aten::addmv", "aten::addmv_", "_Linear",
+               "_LinearBackward", "_Matmul", "_MatmulBackward")
 # what a product op may launch that no name tells from the step's other
 # work: fills, and torch's own copies
 NOT_NAMED = ("Memset", "at::native::")

@@ -1,6 +1,7 @@
 """OSCC's max over a clip's nodes where its two largest values lie within
 rounding: the reference takes the node that the program's gradient shows
-it took (``reference/model.py:NodeMax``), at tiny widths on the CPU."""
+it took (``reference/model.py:NodeMax``), in phase 2 with OSCC the novel
+task and in a phase-1 task set with OSCC, at tiny widths on the CPU."""
 
 import math
 
@@ -14,26 +15,39 @@ from benchmark.tests.tiny import OVERRIDES, manifest
 SEED = 2147483777
 
 
-def _inputs():
-    cfg, traffic, kind = manifest().setting("novel-oscc-step")
-    cfg = {**cfg, **OVERRIDES["novel-oscc-step"]}
+# the cell each case runs in, and what it changes in that cell's
+# configuration: phase 2 with novel OSCC, and a phase-1 task set with OSCC
+CASES = {"novel-oscc-step": ("novel-oscc-step", {}),
+         "phase-1 ar-oscc-lta": ("mtl-step",
+                                 {"tasks": ["ar", "oscc", "lta"]})}
+
+
+def _inputs(case="novel-oscc-step"):
+    cell, change = CASES[case]
+    cfg, traffic, kind = manifest().setting(cell)
+    cfg = {**cfg, **OVERRIDES[cell], **change}
     dev = torch.device("cpu")
     seeds = inputs.stream_seeds(SEED)
     weights = params.init_params(cfg, inputs.generator(seeds["weights"], dev),
                                  dev)
     groups = kind.reference_groups(cfg, traffic, seeds["batches"], dev,
                                    check.STEPS)
-    banks = inputs.banks(cfg, seeds["banks"], dev)
+    banks = (inputs.banks(cfg, seeds["banks"], dev) if cfg["phase"] == 2
+             else None)
     return cfg, weights, groups, banks, lambda: inputs.generator(
         seeds["dropout"], dev)
+
+
+def _knn(cfg):
+    return ref.KnnJudge(cfg["graphone"]["k"]) if cfg["phase"] == 2 else None
 
 
 def _steps(cfg, weights, groups, banks, gen, follow=(), flip=None):
     """The reference's steps; with ``flip`` it stands for a program that
     takes the runner-up node at that tie of its first step."""
     run = ref.ReferenceRun(cfg, weights, params.trainable_names(cfg),
-                           banks=banks, knn=ref.KnnJudge(cfg["graphone"]["k"]),
-                           follow=follow, keep_grads=True)
+                           banks=banks, knn=_knn(cfg), follow=follow,
+                           keep_grads=True)
     if flip is not None:
         start = run.node_max.start
         run.node_max.start = lambda flips: start(
@@ -64,12 +78,11 @@ def test_a_flip_takes_the_runner_up_node_and_its_gradient():
     assert feat.grad.tolist() == [[[0.0, 1.0], [1.0, 0.0], [0.0, 0.0]]]
 
 
-def test_the_reference_follows_the_programs_side_of_a_tie(monkeypatch):
+def _follow_a_planted_tie(monkeypatch, case):
     monkeypatch.setattr(ref, "NODE_TIE_SLACK", math.inf)
-    cfg, weights, groups, banks, gen = _inputs()
+    cfg, weights, groups, banks, gen = _inputs(case)
     probe = ref.ReferenceRun(cfg, weights, params.trainable_names(cfg),
-                             banks=banks, knn=ref.KnnJudge(
-                                 cfg["graphone"]["k"]))
+                             banks=banks, knn=_knn(cfg))
     probe._pass(groups[0], gen())
     plain = _steps(cfg, weights, groups, banks, gen)
     names = plain.names
@@ -90,6 +103,15 @@ def test_the_reference_follows_the_programs_side_of_a_tie(monkeypatch):
     assert ref.elements_off(program.first_grad_tensors,
                             judged.first_grad_tensors, names) == 0.0
     assert judged.losses == program.losses
+
+
+def test_the_reference_follows_the_programs_side_of_a_tie(monkeypatch):
+    _follow_a_planted_tie(monkeypatch, "novel-oscc-step")
+
+
+def test_the_reference_follows_the_programs_side_of_a_phase1_tie(monkeypatch):
+    """Phase 1 with OSCC among the tasks pools OSCC's nodes by a max too."""
+    _follow_a_planted_tie(monkeypatch, "phase-1 ar-oscc-lta")
 
 
 def test_without_ties_the_reference_reads_as_it_did(monkeypatch):
